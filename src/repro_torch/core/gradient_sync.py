@@ -1,0 +1,477 @@
+"""``GradientSync``: the composed RedSync pipeline (Algorithms 4 + 5).
+
+Port of ``src/repro/core/gradient_sync.py``:
+
+    sync = build_gradient_sync(optimizer="rgc", device="cuda")
+    state = sync.init(params)
+    new_params, new_state = sync.update(grads, state, params, lr)
+
+Trees are nested dicts of tensors (``core.tree`` flattens them in the
+reference's sorted-key order). ``update`` runs residual/momentum
+accumulation -> selection -> packing + allgather -> scatter-add
+decompression -> SGD apply, with the per-leaf method choice owned by a
+dispatch policy; ``density >= 1.0`` is the §5.7 dense sentinel.
+
+With ``fuse_leaves`` (default) the sparse leaves coalesce into flat
+residual arenas (``core.arena``) and ALL arenas of a step select
+together in one ``kernels.segmented.multi_select``: one count launch
+per search iteration for every segment. On a CUDA device that call runs
+the hand-written kernels; on the CPU it runs their plain twins.
+
+``update`` is functional: it reads its inputs and returns new tensors.
+Ported here: the ``sequential`` schedule, the ``fused_allgather``
+transport on one worker, the ``momentum`` correction, the ``dense`` /
+``trimmed_topk`` / ``threshold_bsearch`` compressors. ``fuse_accumulate``
+(the fused residual-update+stats kernel) and the rest wait (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+
+from . import arena
+from . import registry
+from . import tree
+from .compressors import _Base as _CompressorBase  # noqa: F401 (registration)
+from .correction import MomentumCorrection, split_corrections
+from .dispatch import FixedPolicy
+from .instrument import NullTimer
+from .overlap import SequentialSchedule, make_schedule
+from .residual import LeafState, accumulate, mask_communicated
+from .sync import message_len
+from .transport import FusedAllgather  # noqa: F401 (registration)
+
+
+class _StepPlan(NamedTuple):
+    """Static per-step dispatch plan, cached per (treedef, leaf
+    signature, density, all_dense)."""
+
+    paths: tuple[str, ...]
+    dense: tuple[int, ...]                              # dense-path leaves
+    sparse: tuple[tuple[int, Any, int], ...]            # per-leaf (i, comp, k)
+    groups: tuple[arena.ArenaGroup, ...]                # fused arenas
+    group_comps: tuple[Any, ...]                        # compressor per group
+
+
+def _by_leaf(group: arena.ArenaGroup, states: list,
+             fld: str) -> dict[int, Any]:
+    return {slot.leaf: getattr(st, fld)
+            for slot, st in zip(group.slots, states)}
+
+
+@dataclass
+class GradientSync:
+    """Composed residual-gradient-compression transform."""
+
+    policy: Any
+    transport: Any
+    density: float = 0.001
+    momentum: float = 0.9
+    nesterov: bool = False
+    weight_decay: float = 0.0
+    residual_dtype: Any = torch.float32
+    fuse_leaves: bool = True
+    corrections: tuple | None = None
+    compressor_params: dict = field(default_factory=dict)
+    schedule: Any = None
+    timer: Any = None
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    _compressors: dict = field(default_factory=dict, repr=False)
+    _plans: dict = field(default_factory=dict, repr=False)
+
+    def __post_init__(self) -> None:
+        if self.timer is None:
+            self.timer = NullTimer()
+        if self.schedule is None:
+            self.schedule = SequentialSchedule()
+        corr = list(self.corrections or ())
+        names = {c.name for c in corr}
+        if self.momentum and "momentum" not in names:
+            corr.append(MomentumCorrection(self.momentum, self.nesterov))
+        self.corrections = tuple(corr)
+        self._arena_ok = all(
+            getattr(c, "arena_safe", lambda: False)()
+            for c in self.corrections)
+
+    # -- construction helpers ----------------------------------------------
+
+    def compressor(self, name: str):
+        if name not in self._compressors:
+            self._compressors[name] = registry.make(
+                registry.COMPRESSOR, name, **self.compressor_params)
+        return self._compressors[name]
+
+    @property
+    def uses_momentum_buffer(self) -> bool:
+        return bool(self.momentum) or any(
+            getattr(c, "needs_momentum_buffer", False)
+            for c in self.corrections)
+
+    def scheduled_density(self, step: int) -> float | None:
+        for c in self.corrections:
+            d = c.density_at(step, self.density)
+            if d is not None:
+                return d
+        return None
+
+    def _check_device(self, leaves: list) -> None:
+        for x in leaves:
+            if x.device.type != self.device.type:
+                raise ValueError(
+                    f"GradientSync on {self.device} got a tensor on "
+                    f"{x.device}")
+
+    def _accumulate(self, grad, param, state: LeafState) -> LeafState:
+        """Residual accumulation: first owning correction wins, else V += g."""
+        for c in self.corrections:
+            st = c.accumulate(grad, param, state,
+                              weight_decay=self.weight_decay)
+            if st is not None:
+                return st
+        return accumulate(grad, param, state, momentum=0.0, nesterov=False,
+                          weight_decay=self.weight_decay)
+
+    # -- the transform ------------------------------------------------------
+
+    def init(self, params: Any) -> Any:
+        """Params-congruent tree of ``LeafState``."""
+        flat = tree.flatten_with_paths(params)
+        self._check_device([p for _, p in flat])
+        out = []
+        for path, p in flat:
+            comp = self.compressor(self.policy.compressor_for(path, p))
+            out.append(comp.init_leaf(p, momentum=self.uses_momentum_buffer,
+                                      residual_dtype=self.residual_dtype))
+        leaf_state = tree.unflatten(tree.structure(params), out)
+        return self.schedule.init_state(self, params, leaf_state)
+
+    def _plan(self, treedef, paths, leaves_g: list, density: float,
+              all_dense: bool) -> _StepPlan:
+        """Resolve (and cache) the static dispatch plan for this step."""
+        sig = tuple((tuple(g.shape), str(g.dtype)) for g in leaves_g)
+        key = (treedef, sig, density, all_dense)
+        if key not in self._plans:
+            self._plans[key] = self._plan_leaves(
+                range(len(leaves_g)), paths, leaves_g, density, all_dense)
+        return self._plans[key]
+
+    def _plan_leaves(self, indices, paths, leaves_g, density: float,
+                     all_dense: bool) -> _StepPlan:
+        dense: list[int] = []
+        sparse: list[tuple[int, Any, int]] = []
+        fusable: dict[tuple[str, str], list] = {}
+        for i in indices:
+            g = leaves_g[i]
+            name = ("dense" if all_dense
+                    else self.policy.compressor_for(paths[i], g))
+            if name == "dense":
+                dense.append(i)
+                continue
+            k = max(1, int(math.ceil(density * g.numel())))
+            comp = self.compressor(name)
+            if (self.fuse_leaves and self._arena_ok
+                    and getattr(comp, "supports_segmented", False)
+                    and not comp.quantized):
+                cap = comp.capacity(k)
+                fusable.setdefault((comp.name, str(g.dtype)), []).append(
+                    (i, paths[i], int(g.numel()), k, cap,
+                     message_len(cap, False)))
+            else:
+                sparse.append((i, comp, k))
+
+        groups, group_comps = [], []
+        for aid, ((name, dtype), slots) in enumerate(fusable.items()):
+            groups.append(arena.build_group(aid, name, dtype, slots))
+            group_comps.append(self.compressor(name))
+        return _StepPlan(paths=tuple(paths[i] for i in indices),
+                         dense=tuple(dense), sparse=tuple(sparse),
+                         groups=tuple(groups),
+                         group_comps=tuple(group_comps))
+
+    def _arena_coeffs(self) -> tuple[float, bool]:
+        for c in self.corrections:
+            coeffs = getattr(c, "arena_coeffs", lambda: None)()
+            if coeffs is not None:
+                return coeffs
+        return 0.0, False
+
+    def _need_u(self) -> tuple[bool, bool]:
+        m, _ = self._arena_coeffs()
+        mask_u = any(getattr(c, "arena_mask_momentum", False)
+                     for c in self.corrections)
+        return mask_u, self.uses_momentum_buffer and bool(m or mask_u)
+
+    def _accumulate_group(self, group: arena.ArenaGroup, leaves_g: list,
+                          leaves_p: list, leaves_s: list) -> tuple:
+        """Per-leaf residual update (the correction hook chain), then
+        gather into the arena view. Returns ``(v2d, u2d, stats, states)``.
+        """
+        _, need_u = self._need_u()
+
+        def _acc():
+            states = []
+            for slot in group.slots:
+                self.timer.count("dispatch_accumulate")
+                states.append(self._accumulate(
+                    leaves_g[slot.leaf], leaves_p[slot.leaf],
+                    leaves_s[slot.leaf]))
+            v2d = arena.gather(group, _by_leaf(group, states, "residual"))
+            u2d = (arena.gather(group, _by_leaf(group, states, "momentum"))
+                   if need_u else None)
+            return v2d, u2d, None, states
+
+        return self.timer.stage("accumulate", _acc)
+
+    def _select_groups(self, groups, comps, accs) -> list[tuple]:
+        """Alg 2/3 across EVERY arena of the step in one ``multi_select``.
+        Returns one ``(selected, slot_states)`` pair per group."""
+        from repro_torch.kernels import segmented as kseg
+        specs = [comp.segment_spec(group.geometry, acc[3])
+                 for group, comp, acc in zip(groups, comps, accs)]
+        parts = [(acc[0], group.geometry, spec, acc[2])
+                 for group, spec, acc in zip(groups, specs, accs)]
+        out = kseg.multi_select(parts)
+        return [(sel, comp.finish_segments(acc[3], thr))
+                for comp, acc, (sel, thr) in zip(comps, accs, out)]
+
+    def _finish_group(self, group: arena.ArenaGroup, selected: list,
+                      slot_states: list, v2d, u2d, leaves_p: list,
+                      new_states: list) -> torch.Tensor:
+        """mask -> scatter state back -> pack; returns the arena message."""
+        timer = self.timer
+        mask_u, need_u = self._need_u()
+
+        def _mask():
+            gidx = arena.communicated_indices(group, selected)
+            v = arena.mask_arena(v2d, gidx)
+            u = (arena.mask_arena(u2d, gidx)
+                 if (mask_u and need_u) else u2d)
+            return v, u
+
+        timer.count("dispatch_mask")
+        v2d_m, u2d_m = timer.stage("mask", _mask)
+
+        v_views = arena.scatter(group, v2d_m)
+        u_views = arena.scatter(group, u2d_m) if need_u else {}
+        for slot, st in zip(group.slots, slot_states):
+            shape = leaves_p[slot.leaf].shape
+            st = st._replace(residual=v_views[slot.leaf].reshape(shape)
+                             .to(self.residual_dtype))
+            if need_u:
+                st = st._replace(momentum=u_views[slot.leaf].reshape(shape))
+            new_states[slot.leaf] = st
+
+        timer.count("dispatch_pack")
+        return timer.stage("pack",
+                           lambda: arena.pack_group(group, selected))
+
+    def update(self, grads: Any, state: Any, params: Any, lr, *,
+               density: float | None = None) -> tuple[Any, Any]:
+        """One synchronized step. Returns (new_params, new_state)."""
+        density = self.density if density is None else density
+        return self.schedule.step(self, grads, state, params, lr, density)
+
+    # -- schedule stage helpers ---------------------------------------------
+
+    def _context(self, grads: Any, leaf_state: Any, params: Any):
+        flat = tree.flatten_with_paths(grads)
+        paths = tuple(p for p, _ in flat)
+        leaves_raw = [g for _, g in flat]
+        treedef = tree.structure(grads)
+        leaves_p = tree.flatten(params)[0]
+        leaves_s = tree.flatten(leaf_state)[0]
+        self._check_device(leaves_raw + leaves_p)
+        n_workers = self.transport.num_workers()
+        leaves_g = list(leaves_raw)
+        for c in self.corrections:
+            leaves_g = c.on_grads(leaves_g, leaves_p, n_workers)
+        return (treedef, paths, leaves_raw, leaves_g, leaves_p, leaves_s,
+                n_workers)
+
+    def _compress_plan(self, plan: _StepPlan, leaves_g: list,
+                       leaves_p: list, leaves_s: list, new_states: list
+                       ) -> tuple[list, list]:
+        """Residual update + selection + packing for every sparse unit
+        (arena groups first, then per-leaf fallbacks); fills
+        ``new_states`` in place. Returns ``(messages, msg_meta)``."""
+        timer = self.timer
+        messages: list[torch.Tensor] = []
+        msg_meta: list[tuple] = []
+
+        if plan.groups:
+            accs = [self._accumulate_group(group, leaves_g, leaves_p,
+                                           leaves_s)
+                    for group in plan.groups]
+            timer.count("dispatch_select")
+            results = timer.stage(
+                "select", lambda: self._select_groups(
+                    plan.groups, plan.group_comps, accs))
+            for group, comp, (sel, slot_states), acc in zip(
+                    plan.groups, plan.group_comps, results, accs):
+                messages.append(self._finish_group(
+                    group, sel, slot_states, acc[0], acc[1], leaves_p,
+                    new_states))
+                msg_meta.append(("arena", group, comp))
+
+        for i, comp, k in plan.sparse:
+            timer.count("dispatch_accumulate")
+            st = timer.stage("accumulate", lambda i=i: self._accumulate(
+                leaves_g[i], leaves_p[i], leaves_s[i]))
+            flat_v = st.residual.reshape(-1).to(torch.float32)
+            timer.count("dispatch_select")
+            selected, st = timer.stage(
+                "select", lambda f=flat_v, st=st: comp.compress(f, k, st))
+
+            def _mask(st=st, sel=selected):
+                st2 = mask_communicated(st, sel.indices, momentum=False)
+                for c in self.corrections:
+                    st2 = c.on_communicated(st2, sel.indices)
+                return st2
+            timer.count("dispatch_mask")
+            new_states[i] = timer.stage("mask", _mask)
+            timer.count("dispatch_pack")
+            messages.append(timer.stage(
+                "pack",
+                lambda sel=selected: self.transport.pack(sel, comp.quantized)))
+            msg_meta.append(("leaf", i, comp, k))
+
+        return messages, msg_meta
+
+    def _gather(self, messages: list) -> list:
+        return self.timer.stage(
+            "transfer", lambda: self.transport.allgather(messages))
+
+    def _apply_gathered(self, gathered: list, msg_meta: list,
+                        leaves_p: list, new_params: list, lr,
+                        n_workers: int) -> None:
+        """Decompress gathered messages and apply the SGD update."""
+        def _apply(buf, i, comp, k):
+            g_sum = comp.decompress(buf, leaves_p[i].numel(), k)
+            upd = (g_sum / n_workers).reshape(leaves_p[i].shape)
+            return (leaves_p[i].to(torch.float32)
+                    - lr * upd).to(leaves_p[i].dtype)
+
+        for buf, meta in zip(gathered, msg_meta):
+            if meta[0] == "arena":
+                _, group, comp = meta
+                for slot, sbuf in zip(group.slots,
+                                      arena.split_message(group, buf)):
+                    new_params[slot.leaf] = self.timer.stage(
+                        "unpack", lambda b=sbuf, s=slot: _apply(
+                            b, s.leaf, comp, s.k))
+            else:
+                _, i, comp, k = meta
+                new_params[i] = self.timer.stage(
+                    "unpack", lambda b=buf, i=i, c=comp, k=k: _apply(
+                        b, i, c, k))
+
+    def _dense_reduce(self, i: int, leaves_g: list) -> torch.Tensor:
+        return self.timer.stage(
+            "transfer",
+            lambda: self.transport.allreduce_mean(leaves_g[i]))
+
+    def _dense_apply(self, i: int, g_mean, leaves_p: list, leaves_s: list,
+                     new_states: list, new_params: list, lr) -> None:
+        """Momentum-SGD apply of one dense leaf's reduced gradient."""
+        st = leaves_s[i]
+        if self.weight_decay:
+            g_mean = g_mean + self.weight_decay * \
+                leaves_p[i].to(torch.float32)
+        if self.momentum:
+            u = self.momentum * st.momentum + g_mean
+            upd = (g_mean + self.momentum * u) if self.nesterov else u
+            new_states[i] = st._replace(momentum=u)
+        else:
+            upd = g_mean
+        new_params[i] = (leaves_p[i].to(torch.float32)
+                         - lr * upd).to(leaves_p[i].dtype)
+
+
+def build_gradient_sync(
+    optimizer: str = "rgc",
+    *,
+    transport: str = "fused_allgather",
+    sync_axes: tuple[str, ...] = (),
+    density: float = 0.001,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+    weight_decay: float = 0.0,
+    local_clip: float | None = None,
+    residual_dtype: Any = torch.float32,
+    dense_threshold_bytes: int | None = None,
+    trimmed_threshold_bytes: int | None = None,
+    fuse_leaves: bool = True,
+    fuse_accumulate: bool = False,
+    schedule: str = "sequential",
+    timer: Any = None,
+    device: str | torch.device | None = None,
+    **compressor_params: Any,
+) -> GradientSync:
+    """Build a ``GradientSync`` from string-addressable component names
+    (the reference's grammar: ``"rgc"``, ``"dense"``, any registered
+    compressor spec, optionally prefixed by ``+``-joined corrections).
+
+    ``device`` defaults to CUDA and raises when no card is present;
+    ``device="cpu"`` runs the plain PyTorch path.
+    """
+    dev = resolve_device(device)
+    if local_clip is not None:
+        raise NotImplementedError(
+            "local_clip is not ported to repro_torch yet (see ROADMAP.md)")
+    if fuse_accumulate:
+        raise NotImplementedError(
+            "fuse_accumulate (the fused residual-update+stats kernel) is "
+            "not ported to repro_torch yet (see ROADMAP.md)")
+    corr_names, base = split_corrections(optimizer)
+    optimizer = base or "rgc"
+    corrections = None
+    if corr_names:
+        corrections = tuple(
+            registry.make(registry.CORRECTION, name, momentum=momentum,
+                          nesterov=nesterov, density=density,
+                          **compressor_params)
+            for name in corr_names)
+
+    policy_kw = {}
+    if dense_threshold_bytes is not None:
+        policy_kw["dense_threshold_bytes"] = dense_threshold_bytes
+    if trimmed_threshold_bytes is not None:
+        policy_kw["trimmed_threshold_bytes"] = trimmed_threshold_bytes
+
+    if optimizer == "rgc":
+        policy = registry.make(registry.DISPATCH_POLICY, "size_based",
+                               **policy_kw)
+    elif optimizer == "dense":
+        policy = FixedPolicy("dense")
+    elif registry.contains(registry.COMPRESSOR, optimizer):
+        registry.make(registry.COMPRESSOR, optimizer, **compressor_params)
+        policy = FixedPolicy(optimizer)
+    else:
+        raise ValueError(
+            f"unknown optimizer {optimizer!r}: expected rgc | dense | a "
+            f"registered compressor {registry.names(registry.COMPRESSOR)}, "
+            f"optionally prefixed by '+'-joined corrections "
+            f"{registry.names(registry.CORRECTION)}")
+
+    timer = timer if timer is not None else NullTimer()
+    return GradientSync(
+        policy=policy,
+        transport=registry.make(registry.TRANSPORT, transport,
+                                sync_axes=tuple(sync_axes), timer=timer),
+        density=density,
+        momentum=momentum,
+        nesterov=nesterov,
+        weight_decay=weight_decay,
+        residual_dtype=residual_dtype,
+        fuse_leaves=fuse_leaves,
+        schedule=make_schedule(schedule),
+        corrections=corrections,
+        compressor_params=dict(compressor_params),
+        timer=timer,
+        device=dev,
+    )

@@ -1,0 +1,142 @@
+"""Single-device RGC trainer.
+
+Port of the ``mesh=None`` path of ``src/repro/train/trainer.py``: each
+step computes the loss and LOCAL gradients of the LSTM LM
+(``torch.autograd.grad``) and hands them to ``GradientSync.update``
+(residual + momentum correction -> selection -> pack -> allgather ->
+decompress -> SGD apply). Multi-GPU data parallelism and checkpoints
+wait (see ROADMAP.md).
+
+``Trainer(...)`` runs on CUDA unless ``device="cpu"`` is passed, and
+raises when no card is present and the CPU was not asked for.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core import tree
+from repro_torch.core.gradient_sync import GradientSync, build_gradient_sync
+from repro_torch.core.schedule import DensitySchedule
+from repro_torch.models import lstm
+
+
+@dataclass
+class TrainState:
+    params: Any              # nested dict of tensors
+    rgc: Any                 # LeafState tree
+    step: int = 0
+
+
+def _residual_dtype(tc: TrainConfig):
+    return torch.bfloat16 if tc.residual_dtype == "bf16" else torch.float32
+
+
+def make_gradient_sync(tc: TrainConfig, device) -> GradientSync:
+    """The composed sync transform a TrainConfig describes."""
+    return build_gradient_sync(
+        tc.optimizer,
+        transport=tc.transport,
+        density=tc.density,
+        momentum=tc.momentum,
+        nesterov=tc.nesterov,
+        weight_decay=tc.weight_decay,
+        local_clip=tc.local_clip,
+        residual_dtype=_residual_dtype(tc),
+        fuse_leaves=tc.fuse_leaves,
+        fuse_accumulate=tc.fuse_accumulate,
+        schedule=tc.schedule,
+        device=device,
+    )
+
+
+def make_train_step(model: lstm.LSTMLM, sync: GradientSync,
+                    tc: TrainConfig, *, density: Optional[float] = None
+                    ) -> Callable:
+    """(params, rgc_state, tokens, lr) -> (loss, new_params, new_state)."""
+    dens = tc.density if density is None else density
+    if tc.optimizer == "dense":
+        dens = 1.0
+
+    def step(params, rgc_state, tokens, lr):
+        model.set_params(params)
+        leaves, treedef = tree.flatten(model.params())
+        loss = model(tokens)
+        grads = torch.autograd.grad(loss, leaves)
+        new_params, new_state = sync.update(
+            tree.unflatten(treedef, list(grads)), rgc_state, params, lr,
+            density=dens)
+        return loss.detach(), new_params, new_state
+    return step
+
+
+class Trainer:
+    """End-to-end single-device training loop for the LSTM LM."""
+
+    def __init__(self, arch_cfg: ModelConfig, tc: TrainConfig,
+                 device: str | torch.device | None = None):
+        if arch_cfg.family != "lstm":
+            raise NotImplementedError(
+                f"model family {arch_cfg.family!r} is not ported yet "
+                f"(see ROADMAP.md)")
+        self.device = resolve_device(device)
+        self.cfg = arch_cfg
+        self.tc = tc
+        self.schedule = DensitySchedule(
+            target=tc.density,
+            warmup_steps_per_stage=tc.warmup_steps_per_stage,
+            dense_warmup=tc.dense_warmup)
+        self._sync = make_gradient_sync(tc, self.device)
+        self._steps: dict[float, Callable] = {}
+        self.model: lstm.LSTMLM | None = None
+
+    def init_state(self, seed: Optional[int] = None,
+                   params: Optional[dict] = None) -> TrainState:
+        """Fresh state: the port's own random init from ``seed`` (default
+        ``tc.seed``) or, for parity runs, the given ``params`` tree."""
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.tc.seed if seed is None else seed)
+            params = lstm.init_params(self.cfg, gen, self.device)
+        self.model = lstm.LSTMLM(self.cfg, params)
+        return TrainState(params=params, rgc=self._sync.init(params), step=0)
+
+    def density_at(self, step: int) -> float:
+        d = self._sync.scheduled_density(step)
+        return self.schedule.density_at(step) if d is None else d
+
+    def _step_fn(self, density: float) -> Callable:
+        if self.tc.optimizer == "dense":
+            density = 1.0
+        if density not in self._steps:
+            self._steps[density] = make_train_step(
+                self.model, self._sync, self.tc, density=density)
+        return self._steps[density]
+
+    def run(self, state: TrainState, batches, num_steps: int,
+            log_every: int = 10, log_fn=print,
+            on_metrics: Optional[Callable[[int, float, float], None]] = None
+            ) -> TrainState:
+        """``on_metrics(step, density, loss)`` fires every step (and waits
+        for the step's loss)."""
+        if self.model is None:
+            raise RuntimeError("call init_state() before run()")
+        lr = torch.tensor(self.tc.lr, dtype=torch.float32, device=self.device)
+        it = iter(batches)
+        for _ in range(num_steps):
+            tokens = torch.as_tensor(next(it)["tokens"], device=self.device)
+            density = self.density_at(state.step)
+            loss, params, rgc_state = self._step_fn(density)(
+                state.params, state.rgc, tokens, lr)
+            state = TrainState(params, rgc_state, state.step + 1)
+            if on_metrics is not None:
+                on_metrics(state.step, density, float(loss))
+            if log_every and state.step % log_every == 0:
+                log_fn(f"step {state.step:5d}  density {density:.4%}  "
+                       f"loss {float(loss):.4f}")
+        self.model.set_params(state.params)
+        return state

@@ -37,6 +37,10 @@ def pytest_configure(config):
         "markers",
         "tier2: slow simulated-cluster convergence tests (enable with "
         "--run-tier2 or RUN_TIER2=1)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels); the test "
+        "skips itself when torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):
