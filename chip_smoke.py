@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile N]
 
 Drives the port (``src/repro_torch``) only; imports nothing of JAX or of
 the JAX package. Phases, each fatal on failure:
@@ -9,21 +9,35 @@ the JAX package. Phases, each fatal on failure:
 1. card facts (``nvidia-smi`` name and power limit, torch device name);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print the build time;
-3. every kernel against its plain PyTorch twin on the card, at the
-   full-width arena of the paper's 2-layer 1500-unit LSTM (six slots,
-   64,458 rows) and on a small ragged arena with ties, threshold 0 and
-   bucket overflow — sums bitwise, counts and compaction exactly — and
-   each kernel's time (CUDA events) beside its bound and its twin's time;
+3. every kernel against its plain PyTorch twin on the card — sums
+   bitwise, counts and compaction exactly, the fused residual update's
+   V'/U' bitwise — and each kernel's device time (20 launches in one
+   CUDA graph, CUDA events) beside its bound, its per-call time from the
+   host and its twin's time. The exact forms run at the full-width arena of
+   the paper's 2-layer 1500-unit LSTM under the default dispatch (six
+   slots, 64,458 rows) and on a small ragged arena with ties, threshold 0
+   and bucket overflow; the strided (sampled) forms and the fused
+   residual-update+stats pass at the full-width nine-slot sampled arena
+   (strides 512 and 1, 64,480 rows) and on a ragged arena with strides
+   1-1024, slot sizes off the stride, ties and threshold 0; the fused
+   pass with momentum 0.9, with nesterov and weight decay, without
+   momentum and with a bf16 round;
 4. two full-width ``GradientSync.update`` steps (refresh, then threshold
    reuse) with the kernels, and again with the twins on the same CUDA
-   tensors: params, residual, momentum, thresholds and packed messages
-   bitwise equal;
-5. the main path: ``Trainer(paper_lstm.FULL, TrainConfig())`` for 8 steps
-   of a seeded synthetic stream (batch 20 x seq 35); kernel launch counts
-   are zeroed just before and read just after; every loss must be finite
-   and every kernel launched;
-6. a JSON line per kernel (time, bound, launches, error), then the last
-   line ``{"ok": true, "device": {...}}``.
+   tensors, for ``rgc`` and for ``sampled_bsearch`` with
+   ``fuse_accumulate`` off and on: params, residual, momentum, thresholds
+   and packed messages bitwise equal, and sampled fused equal to sampled
+   per-leaf accumulation;
+5. three paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
+   8 steps each of a seeded synthetic stream (batch 20 x seq 35): the
+   default (``rgc``), 2a (``optimizer="sampled_bsearch"``) and 2b (the
+   same with ``fuse_accumulate=True``). Kernel launch counts are zeroed
+   just before each path and read just after; every loss must be finite,
+   each path must launch the kernels it names, and every kernel must be
+   launched on some path; with ``--profile N``, N more steps of each
+   path under ``torch.profiler`` print its device time by kernel;
+6. a JSON line per kernel (time, bound, launches on each path, error),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present or the
 port is not beside this script.
@@ -49,7 +63,9 @@ def _fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` launches (warmed)."""
+    """Mean time of ``fn`` in ms over ``reps`` calls back to back (warmed),
+    by CUDA events: device time while the host keeps ahead, else the
+    host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -61,6 +77,47 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host work sits between the launches
+    (a small kernel's time is otherwise the wrapper's host overhead)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_kernel(name: str, kern, plain, nbytes: int, ops: int) -> dict:
+    """Device time (graph), per-call time (events, host included), the
+    twin's time and the bound of one kernel; prints one line."""
+    ms = graph_ms(kern, 20)
+    call_ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 3)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"[kernels] {name}: {ms:.4f} ms on the device (bound {b_ms:.4f} "
+          f"ms by {b_by}, {b_ms / ms:.1%} of it); {call_ms:.4f} ms per "
+          f"call from the host; plain twin {plain_ms:.4f} ms")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segmented.cu",
+            "launches": None, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -86,35 +143,73 @@ def full_width_group(density: float = 0.001):
     return arena.build_group(0, "threshold_bsearch", "torch.float32", slots)
 
 
-def ragged_group():
+def sampled_full_group(density: float = 0.001):
+    """The one arena paths 2a/2b build for paper-lstm FULL: every leaf to
+    ``sampled_bsearch``, in tree order (nine slots, 66,028,000
+    elements). Returns the group and its per-slot strides."""
+    from repro_torch.configs import paper_lstm
+    from repro_torch.core import arena, compressors, sync, tree
+    from repro_torch.models import lstm
+    comp = compressors.SampledBSearch()
+    slots = []
+    for i, (path, (shape, _, _)) in enumerate(tree.flatten_with_paths(
+            lstm.param_defs(paper_lstm.FULL))):
+        n = math.prod(shape)
+        k = max(1, math.ceil(density * n))
+        cap = comp.capacity(k)
+        slots.append((i, path, n, k, cap, sync.message_len(cap, False)))
+    group = arena.build_group(0, "sampled_bsearch", "torch.float32", slots)
+    return group, comp.segment_strides(group.geometry)
+
+
+RAGGED_STRIDES = (1, 16, 1024, 2, 8, 512, 4, 64)
+
+
+def ragged_group(sizes=(1, 1000, 1024, 1025, 5000, 70_000, 3)):
     from repro_torch.core import arena, sync
-    sizes = [1, 1000, 1024, 1025, 5000, 70_000, 3]
     return arena.build_group(0, "threshold_bsearch", "torch.float32", [
         (i, f"s{i}", n, max(1, n // 100), 2 * max(1, n // 100),
          sync.message_len(2 * max(1, n // 100), False))
         for i, n in enumerate(sizes)])
 
 
-def phase_kernels(results: dict) -> None:
+def _arena_of(group, gen, scale: float = 1.0, tied: bool = False):
+    """A seeded CUDA arena for ``group``: normal values, or with ``tied``
+    few distinct magnitudes (ties everywhere), times ``scale``."""
     import torch
     from repro_torch.core import arena
+    leaves = {}
+    for slot in group.slots:
+        if tied:
+            v = torch.randint(-4, 5, (slot.size,), generator=gen,
+                              device="cuda").to(torch.float32) * 0.5
+        else:
+            v = torch.randn(slot.size, generator=gen, device="cuda")
+        leaves[slot.leaf] = v * scale
+    return arena.gather(group, leaves)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _max_err(a, b) -> float:
+    return 0.0 if a is None else float((a.float() - b.float()).abs().max())
+
+
+def phase_kernels(results: dict) -> None:
+    import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import segmented as kseg
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-
-    def arena_of(group, tied: bool):
-        leaves = {}
-        for slot in group.slots:
-            if tied:    # few distinct magnitudes: ties everywhere
-                v = torch.randint(-4, 5, (slot.size,), generator=gen,
-                                  device=dev).to(torch.float32) * 0.5
-            else:
-                v = torch.randn(slot.size, generator=gen, device=dev)
-            leaves[slot.leaf] = v
-        return arena.gather(group, leaves)
 
     def plain_stats(x2d, geom):
         return ref.seg_abs_sum_max(x2d, geom.block_seg, geom.block_size,
@@ -127,18 +222,14 @@ def phase_kernels(results: dict) -> None:
         return ref.seg_compact_gt(x2d, geom.block_seg, geom.block_base,
                                   geom.block_size, thr, cap)
 
-    def same_bits(a, b) -> bool:
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        return a.shape == b.shape and bool(torch.equal(a, b))
-
+    same_bits = _same_bits
     cases = []
     full = full_width_group()
-    x_full = arena_of(full, tied=False)
+    x_full = _arena_of(full, gen)
     thr_full = torch.tensor([3.0, 3.1, 2.9, 3.0, 3.2, 3.0], device=dev)
     cases.append(("full-width", x_full, full.geometry, thr_full, 16))
     rag = ragged_group()
-    x_rag = arena_of(rag, tied=True)
+    x_rag = _arena_of(rag, gen, tied=True)
     n_rag = rag.geometry.n_seg
     cases.append(("ragged thr=1", x_rag, rag.geometry,
                   torch.full((n_rag,), 1.0, device=dev), 8))
@@ -192,22 +283,148 @@ def phase_kernels(results: dict) -> None:
             xbytes + 3 * nb * 4 + nseg * 4 + nb * 16 * 8 + nb * 4,
             3 * elems),
     }
+    replaces = {"seg_abs_sum_max": "src/repro/kernels/segmented.py:113",
+                "seg_count_gt": "src/repro/kernels/segmented.py:182",
+                "seg_compact_gt": "src/repro/kernels/segmented.py:242"}
     for name, (kern, plain, nbytes, ops) in timing.items():
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 3)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        print(f"[kernels] {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
-              f"{b_by}, {b_ms / ms:.1%} of it); plain twin {plain_ms:.4f} ms")
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/segmented.cu",
-            "replaces": {"seg_abs_sum_max": "src/repro/kernels/segmented.py:113",
-                         "seg_count_gt": "src/repro/kernels/segmented.py:182",
-                         "seg_compact_gt": "src/repro/kernels/segmented.py:242",
-                         }[name],
-            "launches": None, "max_abs_err": err[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+        results[name] = time_kernel(name, kern, plain, nbytes, ops)
+        results[name].update(replaces=replaces[name],
+                             max_abs_err=err[name])
+
+    # Why the exact count keeps its own kernel: count_gt_strided with every
+    # stride 1 counts the same, timed here against count_gt on this arena.
+    m = kseg._device_maps(geom, dev, None)
+    out = torch.zeros(nseg, dtype=torch.int32, device=dev)
+
+    def strided_at_1():
+        out.zero_()
+        rc = kseg._lib().seg_count_gt_strided_launch(
+            x_full.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
+            m.seg_pad.data_ptr(), thr_full.data_ptr(), nseg, m.grid_max,
+            out.data_ptr(), kseg._stream())
+        kseg._raise_on(rc, "count_gt_strided at stride 1")
+    strided_at_1()
+    if not same_bits(out, plain_count(x_full, geom, thr_full)):
+        _fail("count_gt_strided at stride 1 differs from the exact count")
+    ms_1 = graph_ms(strided_at_1, 20)
+    print(f"[kernels] exact count at full width: count_gt "
+          f"{results['seg_count_gt']['ms']:.4f} ms, count_gt_strided with "
+          f"every stride 1 {ms_1:.4f} ms (counts equal)")
+
+
+def phase_sampled_kernels(results: dict) -> None:
+    """The strided forms and the fused residual-update+stats pass against
+    their twins, then their times at the full-width sampled arena."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segmented as kseg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    same_bits, max_err = _same_bits, _max_err
+
+    def stride_rows(geom, strides):
+        return np.asarray(strides, np.int32)[np.asarray(geom.block_seg)]
+
+    full, st_full = sampled_full_group()
+    rag = ragged_group((1, 1000, 1024, 1025, 5000, 70_000, 3, 333_333))
+    cases = [("full-width sampled", full, st_full, False),
+             ("ragged strided", rag, RAGGED_STRIDES, True)]
+    configs = [("m=0.9", dict(momentum=0.9, nesterov=False, weight_decay=0.0,
+                              round_dtype=None)),
+               ("m=0.9 nesterov wd=1e-4",
+                dict(momentum=0.9, nesterov=True, weight_decay=1e-4,
+                     round_dtype=None)),
+               ("m=0", dict(momentum=0.0, nesterov=False, weight_decay=0.0,
+                            round_dtype=None)),
+               ("m=0.9 bf16", dict(momentum=0.9, nesterov=False,
+                                   weight_decay=0.0,
+                                   round_dtype=torch.bfloat16))]
+    err = {"seg_abs_sum_max_strided": 0.0, "seg_count_gt_strided": 0.0,
+           "seg_residual_update_stats": 0.0}
+    keep = {}
+    for name, group, strides, tied in cases:
+        geom = group.geometry
+        x = _arena_of(group, gen, 1.0, tied)
+        ks, km = kseg.seg_abs_sum_max(x, geom, strides)
+        ps, pm = ref.seg_abs_sum_max(x, geom.block_seg, geom.block_size,
+                                     geom.n_seg, strides)
+        ok_s = same_bits(ks, ps) and same_bits(km, pm)
+        err["seg_abs_sum_max_strided"] = max(
+            err["seg_abs_sum_max_strided"], max_err(ks, ps), max_err(km, pm))
+        ok_c = True
+        for thr in (torch.full((geom.n_seg,), 1.0, device=dev),
+                    torch.zeros(geom.n_seg, device=dev)):
+            kc = kseg.seg_count_gt(x, geom, thr, strides)
+            pc = ref.seg_count_gt(x, geom.block_seg, thr, geom.n_seg,
+                                  stride_rows(geom, strides))
+            ok_c = ok_c and same_bits(kc, pc)
+            err["seg_count_gt_strided"] = max(err["seg_count_gt_strided"],
+                                              max_err(kc, pc))
+        g2d, v2d, u2d, p2d = (_arena_of(group, gen, sc, tied)
+                              for sc in (1e-3, 1e-2, 1e-3, 0.05))
+        ok_r = []
+        for cname, kw in configs:
+            u = u2d if kw["momentum"] else None
+            p = p2d if kw["weight_decay"] else None
+            got = kseg.seg_residual_update_stats(g2d, v2d, u, p, geom,
+                                                 stride_seg=strides, **kw)
+            want = ref.seg_residual_update_stats(g2d, v2d, u, p, geom,
+                                                 stride_seg=strides, **kw)
+            torch.cuda.synchronize()
+            ok_r.append(all(same_bits(a, b) for a, b in zip(got, want)))
+            err["seg_residual_update_stats"] = max(
+                err["seg_residual_update_stats"],
+                *(max_err(a, b) for a, b in zip(got, want)))
+            print(f"[kernels] {name} seg_residual_update_stats {cname}: "
+                  f"{'equal' if ok_r[-1] else 'DIFFERS'}")
+            del got, want
+        print(f"[kernels] {name}: seg_abs_sum_max strided "
+              f"{'equal' if ok_s else 'DIFFERS'}, seg_count_gt strided "
+              f"{'equal' if ok_c else 'DIFFERS'}; strides {strides}")
+        if not (ok_s and ok_c and all(ok_r)):
+            _fail(f"a strided or fused kernel differs from its twin on "
+                  f"{name}")
+        keep[name] = (x, g2d, v2d, u2d)
+
+    # timing at the full-width sampled arena the paths 2a/2b run
+    x, g2d, v2d, u2d = keep["full-width sampled"]
+    del keep
+    geom, nb, nseg = full.geometry, full.geometry.nblocks, full.geometry.n_seg
+    thr = torch.full((nseg,), 2.0, device=dev)
+    n_samp = sum(-(-n // s) for n, s in zip(geom.seg_sizes, st_full))
+    n_grid = sum(1024 // s for s in stride_rows(geom, st_full))
+    abytes = g2d.numel() * 4
+    resid_kw = dict(momentum=0.9, nesterov=False, weight_decay=0.0,
+                    round_dtype=None, stride_seg=st_full)
+    timing = {
+        "seg_abs_sum_max_strided": (
+            lambda: kseg.seg_abs_sum_max(x, geom, st_full),
+            lambda: ref.seg_abs_sum_max(x, geom.block_seg, geom.block_size,
+                                        nseg, st_full),
+            n_samp * 4 + nseg * (8 + 4 * 4) + 2 * nseg * 4, 3 * n_samp),
+        "seg_count_gt_strided": (
+            lambda: kseg.seg_count_gt(x, geom, thr, st_full),
+            lambda: ref.seg_count_gt(x, geom.block_seg, thr, nseg,
+                                     stride_rows(geom, st_full)),
+            n_grid * 4 + nseg * (8 + 4 + 4 + 4) + nseg * 4, 3 * n_grid),
+        "seg_residual_update_stats": (
+            lambda: kseg.seg_residual_update_stats(g2d, v2d, u2d, None, geom,
+                                                   **resid_kw),
+            lambda: ref.seg_residual_update_stats(g2d, v2d, u2d, None, geom,
+                                                  **resid_kw),
+            5 * abytes + 2 * nseg * 4, 4 * g2d.numel() + 3 * n_samp),
+    }
+    replaces = {
+        "seg_abs_sum_max_strided": "src/repro/kernels/segmented.py:91",
+        "seg_count_gt_strided": "src/repro/kernels/segmented.py:165",
+        "seg_residual_update_stats": "src/repro/kernels/segmented.py:328"}
+    for name, (kern, plain, nbytes, ops) in timing.items():
+        results[name] = time_kernel(name, kern, plain, nbytes, ops)
+        results[name].update(replaces=replaces[name],
+                             max_abs_err=err[name])
 
 
 def _full_width_tree(gen, dev, scale: float):
@@ -221,14 +438,41 @@ def _full_width_tree(gen, dev, scale: float):
     return tree.unflatten(tree.structure(defs), leaves)
 
 
-def phase_sync() -> None:
-    """Two full-width updates with kernels vs with the twins patched in."""
+def _twins_patched():
+    """Every kernel wrapper replaced by its plain twin (a context)."""
+    import contextlib
     from unittest import mock
 
+    import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segmented as kseg
+
+    def rows(g, stride_seg):
+        return (None if stride_seg is None else
+                np.asarray(stride_seg, np.int32)[np.asarray(g.block_seg)])
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_abs_sum_max", lambda x, g, stride_seg=None:
+        ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg,
+                            stride_seg)))
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_count_gt", lambda x, g, t, stride_seg=None:
+        ref.seg_count_gt(x, g.block_seg, t, g.n_seg, rows(g, stride_seg))))
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_compact_gt", lambda x, g, t, c: ref.seg_compact_gt(
+            x, g.block_seg, g.block_base, g.block_size, t, c)))
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_residual_update_stats", ref.seg_residual_update_stats))
+    return stack
+
+
+def phase_sync() -> None:
+    """Two full-width updates with kernels vs with the twins patched in,
+    for rgc and for sampled_bsearch with per-leaf and fused accumulation;
+    then sampled fused vs sampled per-leaf accumulation."""
     import torch
     from repro_torch.core import tree
     from repro_torch.core.gradient_sync import build_gradient_sync
-    from repro_torch.kernels import ref
     from repro_torch.kernels import segmented as kseg
 
     dev = torch.device("cuda")
@@ -238,8 +482,9 @@ def phase_sync() -> None:
     grads = [_full_width_tree(gen, dev, 1e-3) for _ in range(2)]
     lr = torch.tensor(0.1, dtype=torch.float32, device=dev)
 
-    def run():
-        sync = build_gradient_sync("rgc", device=dev)
+    def run(optimizer, fuse_accumulate):
+        sync = build_gradient_sync(optimizer, device=dev,
+                                   fuse_accumulate=fuse_accumulate)
         sent = []
         gather = sync.transport.allgather
 
@@ -253,95 +498,138 @@ def phase_sync() -> None:
         torch.cuda.synchronize()
         return p, st, sent
 
-    before = dict(kseg.launches)
-    t0 = time.perf_counter()
-    with_kernels = run()
-    t_k = time.perf_counter() - t0
-    used = {k: kseg.launches[k] - before[k] for k in before}
-    before = dict(kseg.launches)
-    with mock.patch.object(
-            kseg, "seg_abs_sum_max", lambda x, g: ref.seg_abs_sum_max(
-                x, g.block_seg, g.block_size, g.n_seg)), \
-        mock.patch.object(
-            kseg, "seg_count_gt", lambda x, g, t: ref.seg_count_gt(
-                x, g.block_seg, t, g.n_seg)), \
-        mock.patch.object(
-            kseg, "seg_compact_gt", lambda x, g, t, c: ref.seg_compact_gt(
-                x, g.block_seg, g.block_base, g.block_size, t, c)):
-        t0 = time.perf_counter()
-        with_twins = run()
-        t_p = time.perf_counter() - t0
-    if any(kseg.launches[k] != before[k] for k in before):
-        _fail("the twin run launched a kernel")
-    print(f"[sync] 2 full-width updates: kernels {t_k:.2f} s "
-          f"(launches {used}), plain twins {t_p:.2f} s")
-
     def flat(x):
         out = []
         for leaf in tree.flatten(x)[0]:
             out.extend(leaf if isinstance(leaf, tuple) else [leaf])
         return out
 
-    (pk, sk, mk), (pp, sp, mp) = with_kernels, with_twins
-    pairs = list(zip(flat(pk), flat(pp))) + list(zip(flat(sk), flat(sp)))
-    pairs += list(zip(mk, mp))
-    if len(mk) != len(mp) or not mk:
-        _fail("sync runs sent different message lists")
-    for a, b in pairs:
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            _fail("full-width GradientSync.update differs between the "
-                  "kernels and the plain twins")
-    thr = [float(s.threshold) for s in tree.flatten(sk)[0]]
-    print(f"[sync] params, residual, momentum, thresholds and "
-          f"{len(mk)} packed messages bitwise equal; thresholds {thr}")
+    def bitwise(a_run, b_run) -> bool:
+        (pa, sa, ma), (pb, sb, mb) = a_run, b_run
+        if len(ma) != len(mb) or not ma:
+            return False
+        pairs = list(zip(flat(pa), flat(pb))) + list(zip(flat(sa), flat(sb)))
+        for a, b in pairs + list(zip(ma, mb)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                return False
+        return True
+
+    kept = {}
+    for optimizer, fuse in (("rgc", False), ("sampled_bsearch", False),
+                            ("sampled_bsearch", True)):
+        label = f"{optimizer} fuse_accumulate={fuse}"
+        before = dict(kseg.launches)
+        t0 = time.perf_counter()
+        with_kernels = run(optimizer, fuse)
+        t_k = time.perf_counter() - t0
+        used = {k: kseg.launches[k] - before[k] for k in before
+                if kseg.launches[k] != before[k]}
+        before = dict(kseg.launches)
+        with _twins_patched():
+            t0 = time.perf_counter()
+            with_twins = run(optimizer, fuse)
+            t_p = time.perf_counter() - t0
+        if kseg.launches != before:
+            _fail("the twin run launched a kernel")
+        print(f"[sync] {label}: 2 full-width updates: kernels {t_k:.2f} s "
+              f"(launches {used}), plain twins {t_p:.2f} s")
+        if not bitwise(with_kernels, with_twins):
+            _fail(f"full-width GradientSync.update ({label}) differs "
+                  f"between the kernels and the plain twins")
+        thr = [float(s.threshold) for s in tree.flatten(with_kernels[1])[0]]
+        print(f"[sync] {label}: params, residual, momentum, thresholds and "
+              f"{len(with_kernels[2])} packed messages bitwise equal; "
+              f"thresholds {thr}")
+        if optimizer == "sampled_bsearch":
+            kept[fuse] = with_kernels
+        del with_twins
+    if not bitwise(kept[False], kept[True]):
+        _fail("sampled_bsearch: fuse_accumulate=True differs from False")
+    print("[sync] sampled_bsearch: fuse_accumulate True and False bitwise "
+          "equal on the card")
 
 
-def phase_train(results: dict) -> None:
+# (key, label, TrainConfig overrides, kernels the path must launch)
+PATHS = (
+    ("default", "default", {},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt")),
+    ("2a", "2a sampled_bsearch", {"optimizer": "sampled_bsearch"},
+     ("seg_abs_sum_max_strided", "seg_count_gt_strided", "seg_count_gt",
+      "seg_compact_gt")),
+    ("2b", "2b sampled_bsearch fuse_accumulate",
+     {"optimizer": "sampled_bsearch", "fuse_accumulate": True},
+     ("seg_residual_update_stats", "seg_count_gt_strided", "seg_count_gt",
+      "seg_compact_gt")),
+)
+
+
+def phase_train(results: dict, profile: int) -> None:
     import torch
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import segmented as kseg
+    from repro_torch.launch.train import profile_steps
     from repro_torch.train.trainer import Trainer
 
     steps = 8
-    trainer = Trainer(paper_lstm.FULL, TrainConfig())
-    state = trainer.init_state()
-    data = iter(SyntheticLM(vocab_size=10_000, batch=20, seq_len=35,
-                            seed=SEED))
-    torch.cuda.synchronize()
-    rec = []
-    last = [time.perf_counter(), {}]
-
-    def on_metrics(step, density, loss):
+    per_path = {k: {} for k in kseg.launches}
+    for key, label, overrides, needs in PATHS:
+        trainer = Trainer(paper_lstm.FULL, TrainConfig(**overrides))
+        state = trainer.init_state()
+        data = iter(SyntheticLM(vocab_size=10_000, batch=20, seq_len=35,
+                                seed=SEED))
         torch.cuda.synchronize()
-        now = time.perf_counter()
-        counts = {k: v - last[1].get(k, 0) for k, v in kseg.launches.items()}
-        rec.append((step, loss, now - last[0], counts))
-        last[0], last[1] = now, dict(kseg.launches)
+        rec = []
+        last = [time.perf_counter(), {}]
 
-    for k in kseg.launches:
-        kseg.launches[k] = 0
-    last[0] = time.perf_counter()
-    trainer.run(state, data, steps, log_every=0, on_metrics=on_metrics)
-    total = dict(kseg.launches)
-    for step, loss, dt, counts in rec:
-        print(f"[train] step {step} loss {loss:.6f} time {dt * 1e3:.2f} ms "
-              f"launches {counts}")
-    med = statistics.median(dt for _, _, dt, _ in rec)
-    print(f"[train] median step {med * 1e3:.2f} ms; launches over "
-          f"{steps} steps {total}")
-    if not all(math.isfinite(loss) for _, loss, _, _ in rec):
-        _fail("non-finite loss")
-    for name, n in total.items():
-        if n <= 0:
-            _fail(f"{name} was not launched on the main path")
-        results[name]["launches"] = n
+        def on_metrics(step, density, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            counts = {k: v - last[1].get(k, 0)
+                      for k, v in kseg.launches.items() if v}
+            rec.append((step, loss, now - last[0], counts))
+            last[0], last[1] = now, dict(kseg.launches)
+
+        for k in kseg.launches:
+            kseg.launches[k] = 0
+        last[0] = time.perf_counter()
+        state = trainer.run(state, data, steps, log_every=0,
+                            on_metrics=on_metrics)
+        total = dict(kseg.launches)
+        for step, loss, dt, counts in rec:
+            print(f"[train] {label}: step {step} loss {loss:.6f} time "
+                  f"{dt * 1e3:.2f} ms launches {counts}")
+        med = statistics.median(dt for _, _, dt, _ in rec)
+        print(f"[train] {label}: median step {med * 1e3:.2f} ms; launches "
+              f"over {steps} steps "
+              f"{ {k: v for k, v in total.items() if v} }")
+        if not all(math.isfinite(loss) for _, loss, _, _ in rec):
+            _fail(f"non-finite loss on path {label}")
+        for name in needs:
+            if total[name] <= 0:
+                _fail(f"{name} was not launched on path {label}")
+        for k, v in total.items():
+            per_path[k][key] = v
+        if profile:
+            print(f"[profile] {label}:")
+            profile_steps(trainer, state, data, profile)
+        del trainer, state
+        torch.cuda.empty_cache()
+    for name, counts in per_path.items():
+        if not any(counts.values()):
+            _fail(f"{name} was launched on no path")
+        results[name]["launches"] = counts
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="after each path's steps, profile N more steps")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -371,11 +659,14 @@ def main() -> int:
 
     results: dict = {}
     phase_kernels(results)
+    phase_sampled_kernels(results)
     phase_sync()
-    phase_train(results)
+    phase_train(results, args.profile)
 
     print(json.dumps({"kernels": [results[k] for k in (
-        "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt")]}))
+        "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+        "seg_abs_sum_max_strided", "seg_count_gt_strided",
+        "seg_residual_update_stats")]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

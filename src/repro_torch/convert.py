@@ -10,6 +10,9 @@ Parameters map one to one (``embed.table``, ``lm_head``, ``lm_bias``,
 ``lstm_i.{wx,wh,b}``; same layouts, no transposes). A ``LeafState``
 tree (any named tuple with the reference's five fields at the leaves)
 becomes the port's ``LeafState`` tree; ``to_numpy`` goes the other way.
+numpy has no bfloat16 of its own: a bf16 array (JAX's ``ml_dtypes``
+type) crosses by its bits, and a bf16 tensor comes back as float32,
+which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -26,7 +29,16 @@ def _is_leaf_state(x: Any) -> bool:
 
 
 def _to_torch(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def from_numpy(t: Any, device: str | torch.device = "cpu") -> Any:
@@ -45,6 +57,6 @@ def to_numpy(t: Any) -> Any:
     if isinstance(t, dict):
         return {k: to_numpy(v) for k, v in t.items()}
     if _is_leaf_state(t):
-        return LeafState(*(f.detach().cpu().numpy() for f in t))
-    return t.detach().cpu().numpy()
+        return LeafState(*(_to_numpy(f) for f in t))
+    return _to_numpy(t)
 

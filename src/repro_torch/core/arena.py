@@ -74,6 +74,21 @@ class SegmentGeometry:
     device_maps: dict = field(default_factory=dict, repr=False)
 
 
+def single_slot_geometry(n: int, k: int,
+                         block: int = ARENA_BLOCK) -> SegmentGeometry:
+    """A one-slot geometry viewing a lone flat leaf as a mini arena, so
+    the per-leaf path can run the segmented kernels (the strided ones
+    exist only in segmented form); its zero-padded [nb, block] view is
+    the leaf's own 2-D layout."""
+    nb = max(1, -(-n // block))
+    return SegmentGeometry(
+        block=block, n_seg=1, nblocks=nb,
+        block_seg=np.zeros(nb, np.int32),
+        block_base=np.arange(nb, dtype=np.int32) * block,
+        block_size=np.full(nb, n, np.int32),
+        seg_sizes=(n,), seg_ks=(k,), seg_rows=((0, nb),))
+
+
 def stack_geometries(geoms: Sequence[SegmentGeometry]) -> SegmentGeometry:
     """Row-concatenate several arenas' geometries into one super-arena
     (segment ordinals and row ranges offset), so one kernel launch covers

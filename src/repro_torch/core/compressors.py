@@ -1,11 +1,11 @@
 """Compressor implementations (RedSync §5.2), registry-addressable.
 
-Port of ``src/repro/core/compressors.py``: ``dense``, ``trimmed_topk``
-and ``threshold_bsearch`` (alias ``threshold_binary_search``) with the
-segmented-arena protocol (``segment_spec`` / ``finish_segments``) and
-§5.2.2 threshold reuse (refresh every ``interval`` steps, warm-started
-bisection in between refreshes). ``exact_topk``, ``sampled_bsearch`` and
-the ``quantized(...)`` wrapper wait.
+Port of ``src/repro/core/compressors.py``: ``dense``, ``trimmed_topk``,
+``threshold_bsearch`` (alias ``threshold_binary_search``) and
+``sampled_bsearch`` with the segmented-arena protocol (``segment_spec`` /
+``finish_segments``) and §5.2.2 threshold reuse (refresh every
+``interval`` steps, warm-started bisection in between refreshes).
+``exact_topk`` and the ``quantized(...)`` wrapper wait (ROADMAP.md).
 
 The reference's ``backend`` parameter ("jnp" | "pallas") is accepted
 and ignored: in the port the tensor's device picks the implementation
@@ -20,6 +20,7 @@ import torch
 
 from . import registry
 from . import selection as sel_lib
+from .cost_model import sample_stride, sampled_capacity
 from . import sync as sync_lib
 from .residual import LeafState, init_leaf
 from .selection import Selected
@@ -43,6 +44,10 @@ class _Base:
 
     def finish_segments(self, states, thr):
         return list(states)
+
+    def segment_strides(self, geom) -> tuple[int, ...]:
+        """Per-slot sampling strides of the arena statistics (1 = exact)."""
+        return (1,) * geom.n_seg
 
     def decompress(self, gathered: torch.Tensor, size: int,
                    k: int) -> torch.Tensor:
@@ -129,6 +134,66 @@ class ThresholdBSearch(_Base):
                 for i, st in enumerate(states)]
 
 
+class SampledBSearch(ThresholdBSearch):
+    """Alg 3 with DGC-style sampled statistics and sampled nnz counting:
+    mean/max and every search count come from each leaf's ``[::stride]``
+    subsample (``cost_model.sample_stride``), and the message carries
+    tolerance headroom, ``capacity(k) == sampled_capacity(k, tolerance)``.
+    The final filter uses the true count. ``tolerance == 0`` is stride 1,
+    the exact ``threshold_bsearch``."""
+
+    name = "sampled_bsearch"
+
+    def __init__(self, interval: int = 5, eps: float = 1e-3,
+                 warm_start: bool = True, tolerance: float = 0.5):
+        super().__init__(interval=interval, eps=eps, warm_start=warm_start)
+        self.tolerance = tolerance
+
+    def capacity(self, k: int) -> int:
+        return sampled_capacity(k, self.tolerance)
+
+    def segment_strides(self, geom) -> tuple[int, ...]:
+        return tuple(sample_stride(k, self.tolerance) for k in geom.seg_ks)
+
+    def compress(self, flat_v, k, state: LeafState
+                 ) -> tuple[Selected, LeafState]:
+        if flat_v.device.type != "cpu":
+            return self.compress_arena(flat_v, k, state)
+        cap = self.capacity(k)
+        if bool(state.interval % self.interval == 0):
+            s, thr = sel_lib.sampled_threshold_search(
+                flat_v, k, stride=sample_stride(k, self.tolerance),
+                capacity=cap, eps=self.eps,
+                warm=state.threshold if self.warm_start else None)
+        else:
+            s = sel_lib.threshold_filter(flat_v, state.threshold,
+                                         capacity=cap)
+            thr = state.threshold
+        return s, state._replace(threshold=thr, interval=state.interval + 1)
+
+    def compress_arena(self, flat_v, k, state: LeafState
+                       ) -> tuple[Selected, LeafState]:
+        """The lone leaf as a one-slot arena through ``multi_select`` —
+        the strided kernels exist only in segmented form — as the
+        reference's Pallas branch does; bitwise the per-leaf search."""
+        from repro_torch.kernels import segmented as kseg
+
+        from .arena import ARENA_BLOCK, single_slot_geometry
+        n = flat_v.numel()
+        geom = single_slot_geometry(n, k)
+        x2d = flat_v.new_zeros(geom.nblocks * ARENA_BLOCK)
+        x2d[:n] = flat_v.reshape(-1)
+        spec = self.segment_spec(geom, [state])
+        ((sel, thr),) = kseg.multi_select(
+            [(x2d.reshape(geom.nblocks, ARENA_BLOCK), geom, spec, None)])
+        return sel[0], self.finish_segments([state], thr)[0]
+
+    def segment_spec(self, geom, states):
+        return super().segment_spec(geom, states)._replace(
+            strides=self.segment_strides(geom),
+            capacities=tuple(self.capacity(k) for k in geom.seg_ks))
+
+
 # --- registration ----------------------------------------------------------
 
 @registry.register(registry.COMPRESSOR, "dense")
@@ -150,3 +215,12 @@ def _bsearch(bsearch_interval: int = 5, bsearch_eps: float = 1e-3,
 
 registry.register_alias(registry.COMPRESSOR, "threshold_binary_search",
                         "threshold_bsearch")
+
+
+@registry.register(registry.COMPRESSOR, "sampled_bsearch")
+def _sampled(bsearch_interval: int = 5, bsearch_eps: float = 1e-3,
+             warm_start: bool = True, sampled_tolerance: float = 0.5,
+             **_: Any) -> SampledBSearch:
+    return SampledBSearch(interval=bsearch_interval, eps=bsearch_eps,
+                          warm_start=warm_start,
+                          tolerance=sampled_tolerance)

@@ -18,11 +18,18 @@ together in one ``kernels.segmented.multi_select``: one count launch
 per search iteration for every segment. On a CUDA device that call runs
 the hand-written kernels; on the CPU it runs their plain twins.
 
+With ``fuse_accumulate`` each arena's residual update runs as ONE pass
+(``kernels.segmented.seg_residual_update_stats``) that also yields the
+arena's selection statistics, instead of per leaf followed by a gather
+and a separate statistics pass. In eager PyTorch both compute the same
+separately rounded products, so the two are bitwise equal.
+
 ``update`` is functional: it reads its inputs and returns new tensors.
 Ported here: the ``sequential`` schedule, the ``fused_allgather``
 transport on one worker, the ``momentum`` correction, the ``dense`` /
-``trimmed_topk`` / ``threshold_bsearch`` compressors. ``fuse_accumulate``
-(the fused residual-update+stats kernel) and the rest wait (ROADMAP.md).
+``trimmed_topk`` / ``threshold_bsearch`` / ``sampled_bsearch``
+compressors, ``fuse_accumulate`` and bf16 residuals. The rest waits
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -76,6 +83,8 @@ class GradientSync:
     weight_decay: float = 0.0
     residual_dtype: Any = torch.float32
     fuse_leaves: bool = True
+    # one fused residual-update+stats pass per arena instead of per leaf
+    fuse_accumulate: bool = False
     corrections: tuple | None = None
     compressor_params: dict = field(default_factory=dict)
     schedule: Any = None
@@ -206,14 +215,38 @@ class GradientSync:
                      for c in self.corrections)
         return mask_u, self.uses_momentum_buffer and bool(m or mask_u)
 
-    def _accumulate_group(self, group: arena.ArenaGroup, leaves_g: list,
-                          leaves_p: list, leaves_s: list) -> tuple:
-        """Per-leaf residual update (the correction hook chain), then
-        gather into the arena view. Returns ``(v2d, u2d, stats, states)``.
-        """
+    def _accumulate_group(self, group: arena.ArenaGroup, comp,
+                          leaves_g: list, leaves_p: list, leaves_s: list
+                          ) -> tuple:
+        """Residual update, then the arena's 2-D view. Returns
+        ``(v2d, u2d, stats, states)``. Per leaf (the correction hook
+        chain) then a gather; or, with ``fuse_accumulate``, a gather of
+        g, V, U (and p) and one fused update+statistics pass whose
+        ``(mean, max)`` — over ``comp``'s per-slot sampling strides —
+        feed ``multi_select``."""
+        from repro_torch.kernels import segmented as kseg
         _, need_u = self._need_u()
+        m, nesterov = self._arena_coeffs()
+        geom = group.geometry
 
-        def _acc():
+        def _fused():
+            g2d = arena.gather(group, leaves_g)
+            v2d = arena.gather(group, [s.residual for s in leaves_s])
+            u2d = (arena.gather(group, [s.momentum for s in leaves_s])
+                   if need_u else None)
+            p2d = arena.gather(group, leaves_p) if self.weight_decay else None
+            strides = comp.segment_strides(geom)
+            v2, u2, sums, maxs = kseg.seg_residual_update_stats(
+                g2d, v2d, u2d if m else None, p2d, geom, momentum=m,
+                nesterov=nesterov, weight_decay=self.weight_decay,
+                round_dtype=(None if self.residual_dtype == torch.float32
+                             else self.residual_dtype),
+                stride_seg=strides)
+            stats = (kseg.seg_mean(sums, geom, strides), maxs)
+            states = [leaves_s[slot.leaf] for slot in group.slots]
+            return v2, (u2 if u2 is not None else u2d), stats, states
+
+        def _per_leaf():
             states = []
             for slot in group.slots:
                 self.timer.count("dispatch_accumulate")
@@ -225,7 +258,10 @@ class GradientSync:
                    if need_u else None)
             return v2d, u2d, None, states
 
-        return self.timer.stage("accumulate", _acc)
+        if self.fuse_accumulate:
+            self.timer.count("dispatch_accumulate")
+            return self.timer.stage("accumulate", _fused)
+        return self.timer.stage("accumulate", _per_leaf)
 
     def _select_groups(self, groups, comps, accs) -> list[tuple]:
         """Alg 2/3 across EVERY arena of the step in one ``multi_select``.
@@ -304,9 +340,9 @@ class GradientSync:
         msg_meta: list[tuple] = []
 
         if plan.groups:
-            accs = [self._accumulate_group(group, leaves_g, leaves_p,
+            accs = [self._accumulate_group(group, comp, leaves_g, leaves_p,
                                            leaves_s)
-                    for group in plan.groups]
+                    for group, comp in zip(plan.groups, plan.group_comps)]
             timer.count("dispatch_select")
             results = timer.stage(
                 "select", lambda: self._select_groups(
@@ -423,10 +459,6 @@ def build_gradient_sync(
     if local_clip is not None:
         raise NotImplementedError(
             "local_clip is not ported to repro_torch yet (see ROADMAP.md)")
-    if fuse_accumulate:
-        raise NotImplementedError(
-            "fuse_accumulate (the fused residual-update+stats kernel) is "
-            "not ported to repro_torch yet (see ROADMAP.md)")
     corr_names, base = split_corrections(optimizer)
     optimizer = base or "rgc"
     corrections = None
@@ -469,6 +501,7 @@ def build_gradient_sync(
         weight_decay=weight_decay,
         residual_dtype=residual_dtype,
         fuse_leaves=fuse_leaves,
+        fuse_accumulate=fuse_accumulate,
         schedule=make_schedule(schedule),
         corrections=corrections,
         compressor_params=dict(compressor_params),

@@ -87,8 +87,10 @@ def mask_momentum(state: LeafState, indices: torch.Tensor) -> LeafState:
 
 def accumulate_arena(g2d, v2d, u2d, p2d, *, momentum: float, nesterov: bool,
                      weight_decay: float, residual_dtype=torch.float32):
-    """Alg 4 lines 8-19 over a whole arena (plain twin of the fused
-    residual-update+stats kernel, which waits). Returns (V', U' or None).
+    """Alg 4 lines 8-19 over a whole arena: the update half of the plain
+    twin of the fused residual-update+stats kernel
+    (``kernels.segmented.seg_residual_update_stats``), with the same
+    separately rounded products. Returns (V', U' or None).
     """
     g = g2d.to(torch.float32)
     if weight_decay:

@@ -188,6 +188,22 @@ def threshold_binary_search(x: torch.Tensor, k: int, eps: float = 1e-3,
     return threshold_filter(x, thr, capacity=2 * k), thr
 
 
+def sampled_threshold_search(x: torch.Tensor, k: int, *, stride: int,
+                             capacity: int, eps: float = 1e-3,
+                             warm: torch.Tensor | None = None
+                             ) -> tuple[Selected, torch.Tensor]:
+    """DGC-style sampled Alg 3: statistics and every bisection count come
+    from ``x[::stride]``, the count scaled by ``stride``; only the final
+    first-``capacity`` filter reads all of ``x``, so its ``count`` is the
+    true survivor count. ``stride=1`` is ``threshold_binary_search``."""
+    flat = x.reshape(-1)
+    axs = (flat[::stride] if stride > 1 else flat).abs()
+    mean, mx = _stats(axs)
+    thr = search_band(lambda t: (axs > t).sum() * stride, mean, mx, k, eps,
+                      warm)
+    return threshold_filter(x, thr, capacity=capacity), thr
+
+
 def threshold_filter(x: torch.Tensor, threshold: torch.Tensor,
                      capacity: int) -> Selected:
     """All elements with |x| > threshold, first-``capacity`` in index

@@ -4,16 +4,18 @@ Port of the segmented half of ``src/repro/kernels/ref.py``. Each twin
 computes exactly what the reference's ``jnp`` twin computes and is the
 oracle its CUDA kernel (``kernels/csrc/segmented.cu``) is held against:
 ``seg_abs_sum_max`` bitwise (the pinned summation tree), the integer
-counts and the compaction exactly. The wrappers in
-``kernels/segmented.py`` run these for CPU tensors; they also run on CUDA
-tensors when called directly, which is how the card compares kernel and
-twin.
+counts and the compaction exactly, and ``seg_residual_update_stats``
+bitwise (the separately rounded products of ``accumulate_arena``). The
+wrappers in ``kernels/segmented.py`` run these for CPU tensors; they also
+run on CUDA tensors when called directly, which is how the card compares
+kernel and twin.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.residual import accumulate_arena
 from repro_torch.core.selection import pinned_sum
 
 
@@ -29,26 +31,45 @@ def _i64(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
 
-def seg_abs_sum_max(x2d: torch.Tensor, block_seg, block_size, n_seg: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def seg_abs_sum_max(x2d: torch.Tensor, block_seg, block_size, n_seg: int,
+                    stride_seg=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-segment (sum|x|, max|x|): ``pinned_sum`` over each slot's
-    TRUE-length flat vector (padding sliced off) and a plain max."""
+    TRUE-length flat vector (padding sliced off) and a plain max.
+
+    ``stride_seg`` (per-segment ints) restricts both to the slot's
+    ``[::stride]`` subsample of true length ``ceil(n / stride)``, the
+    vector the sampled selector searches; ``None`` / stride 1 is exact.
+    """
     ax = x2d.to(torch.float32).abs()
     bsize = np.asarray(block_size)
     sums, maxs = [], []
-    for r0, r1 in _seg_rows(block_seg):
+    for s, (r0, r1) in enumerate(_seg_rows(block_seg)):
         seg = ax[r0:r1]
-        sums.append(pinned_sum(seg.reshape(-1)[:int(bsize[r0])]))
-        maxs.append(seg.max())
+        stride = 1 if stride_seg is None else int(stride_seg[s])
+        if stride > 1:
+            vec = seg.reshape(-1)[:int(bsize[r0]):stride]
+            sums.append(pinned_sum(vec))
+            maxs.append(vec.max())
+        else:
+            sums.append(pinned_sum(seg.reshape(-1)[:int(bsize[r0])]))
+            maxs.append(seg.max())
     return torch.stack(sums), torch.stack(maxs)
 
 
 def seg_count_gt(x2d: torch.Tensor, block_seg, thresholds: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
-    """Per-segment nnz(|x| > thresholds[seg]) as i32 (order-free)."""
+                 n_seg: int, stride_b=None) -> torch.Tensor:
+    """Per-segment nnz(|x| > thresholds[seg]) as i32 (order-free).
+
+    ``stride_b`` (per-row ints) counts only the columns with
+    ``col % stride == 0``: strides divide the row and slots start on a
+    row, so that is the slot-local ``[::stride]`` grid."""
     seg = _i64(block_seg, x2d.device)
     thr_b = thresholds.to(torch.float32)[seg]
-    cnt_b = (x2d.to(torch.float32).abs() > thr_b[:, None]).sum(1)
+    mask = x2d.to(torch.float32).abs() > thr_b[:, None]
+    if stride_b is not None:
+        col = torch.arange(x2d.shape[1], device=x2d.device)[None, :]
+        mask = mask & (col % _i64(stride_b, x2d.device)[:, None] == 0)
+    cnt_b = mask.sum(1)
     out = torch.zeros(n_seg, dtype=torch.int64, device=x2d.device)
     return out.index_add_(0, seg, cnt_b).to(torch.int32)
 
@@ -83,3 +104,26 @@ def seg_compact_gt(x2d: torch.Tensor, block_seg, block_base, block_size,
     idx = torch.cat([sentinel, sentinel.new_zeros(1)]) \
         .scatter_(0, tgt, lidx.reshape(-1))[:nb * cap].reshape(nb, cap)
     return vals, idx.to(torch.int32), cnts
+
+
+def seg_residual_update_stats(g2d, v2d, u2d, p2d, geom, *, momentum: float,
+                              nesterov: bool, weight_decay: float = 0.0,
+                              round_dtype=None, stride_seg=None):
+    """The fused accumulate + statistics pass: ``residual.accumulate_arena``
+    (V', U'; V' rounded through ``round_dtype`` when given), then the
+    pinned, optionally strided ``seg_abs_sum_max`` of V'. Returns
+    (V', U' or None, per-segment sum|V'|, per-segment max|V'|).
+
+    The reference's own twin of this pass sums each segment's rows in
+    sequence, as its Pallas grid does. This twin deliberately follows the
+    reference's default ``jnp`` pipeline instead, which computes these
+    statistics with ``pinned_sum`` (strided for sampled slots): a twin
+    that summed otherwise would move the selection thresholds.
+    """
+    v, u = accumulate_arena(
+        g2d, v2d, u2d, p2d, momentum=momentum, nesterov=nesterov,
+        weight_decay=weight_decay,
+        residual_dtype=torch.float32 if round_dtype is None else round_dtype)
+    sums, maxs = seg_abs_sum_max(v, geom.block_seg, geom.block_size,
+                                 geom.n_seg, stride_seg)
+    return v, u, sums, maxs

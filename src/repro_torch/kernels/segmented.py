@@ -1,27 +1,35 @@
 """Segmented kernels + selectors for the flat residual arenas.
 
-Port of ``src/repro/kernels/segmented.py`` (exact, non-strided forms).
-One arena coalesces many same-dtype leaves (``core.arena``); each kernel
-runs ONCE over the whole arena while selection stays segmented — every
-slot keeps its own ``k``, statistics, threshold and bucket capacity:
+Port of ``src/repro/kernels/segmented.py``. One arena coalesces many
+same-dtype leaves (``core.arena``); each kernel runs ONCE over the whole
+arena while selection stays segmented — every slot keeps its own ``k``,
+statistics, threshold and bucket capacity:
 
-* ``seg_abs_sum_max`` — per-segment (sum|x|, max|x|);
+* ``seg_abs_sum_max`` — per-segment (sum|x|, max|x|), over the whole slot
+                        or, with ``stride_seg``, its ``[::stride]``
+                        subsample (the sampled selector's statistics);
 * ``seg_count_gt``    — per-segment nnz(|x| > t_s), one launch per
-                        search iteration for every segment;
+                        search iteration for every segment; with
+                        ``stride_seg`` only the stride grid is counted;
 * ``seg_compact_gt``  — block-bucketed compaction of every slot's
-                        survivors with slot-local indices.
+                        survivors with slot-local indices;
+* ``seg_residual_update_stats`` — the residual update (Alg 4) and the
+                        (optionally strided) statistics of the updated
+                        residual in one pass over the arena.
 
 Each wrapper takes the plain twin (``kernels.ref``) for a CPU tensor and
 launches its hand-written CUDA kernel (``csrc/segmented.cu``) for a CUDA
 tensor; anything else raises. ``launches`` counts kernel launches per
-wrapper (one per call on the card; the CPU path counts nothing).
+wrapper and form (one per call on the card; the CPU path counts nothing).
 
 ``multi_select`` runs Algorithms 2 and 3 across every slot of every arena
-with one count launch per search iteration. It follows the reference's
-``use_pallas=False`` (jnp) semantics on both devices: the trimmed
-fallback to exact top-k fires on bucket overflow OR when fewer than k
-elements survive the last rung. Its search loop is a host loop: one
-``.item()`` per iteration decides whether to go on.
+with one count launch per search iteration; sampled slots (a stride > 1
+in their ``SegmentSpec``) search on strided statistics and strided
+counts scaled by the stride, and the final count stays exact. It follows
+the reference's ``use_pallas=False`` (jnp) semantics on both devices: the
+trimmed fallback to exact top-k fires on bucket overflow OR when fewer
+than k elements survive the last rung. Its search loop is a host loop:
+one ``.item()`` per iteration decides whether to go on.
 """
 from __future__ import annotations
 
@@ -39,15 +47,18 @@ from repro_torch.core.selection import (Selected, _pad_topk, bisect_midpoint,
 from . import ref
 from .ops import _cap_for, _gather_topk_from_buckets
 
-__all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt", "seg_stats",
-           "seg_mean", "SegmentSpec", "multi_select", "launches"]
+__all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+           "seg_residual_update_stats", "seg_stats", "seg_mean",
+           "SegmentSpec", "multi_select", "launches"]
 
 ROW = 1024                       # arena row width the kernels are built for
 LOG_COLS = 16                    # seg_abs_sum_max phase-1 columns: <= 2^16
 
-# Kernel launches per wrapper since the last reset (plain ints; chip_smoke
-# zeroes them before the main path and reads them after).
-launches = {"seg_abs_sum_max": 0, "seg_count_gt": 0, "seg_compact_gt": 0}
+# Kernel launches per wrapper and form since the last reset (plain ints;
+# chip_smoke zeroes them before each path it drives and reads them after).
+launches = {"seg_abs_sum_max": 0, "seg_count_gt": 0, "seg_compact_gt": 0,
+            "seg_abs_sum_max_strided": 0, "seg_count_gt_strided": 0,
+            "seg_residual_update_stats": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -56,51 +67,82 @@ launches = {"seg_abs_sum_max": 0, "seg_count_gt": 0, "seg_compact_gt": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     from .build import load
     lib = load("segmented")
-    lib.seg_abs_sum_max_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+    lib.seg_abs_sum_max_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _P, _P, _P, _P, _P]
     lib.seg_count_gt_launch.argtypes = [_P, _P, _P, _I, _P, _P]
+    lib.seg_count_gt_strided_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                                 _P, _P]
+    lib.seg_residual_update_stats_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _P, _P, _P, _P, _P, _P, _I,
+        _I, _P, _P, _P, _P, _P]
     lib.seg_compact_gt_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
                                           _P, _P, _P, _P]
     for fn in (lib.seg_abs_sum_max_launch, lib.seg_count_gt_launch,
+               lib.seg_count_gt_strided_launch,
+               lib.seg_residual_update_stats_launch,
                lib.seg_compact_gt_launch):
         fn.restype = _I
     return lib
 
 
 class _DeviceMaps(NamedTuple):
-    """A geometry's maps as device tensors (built once per device)."""
+    """A geometry's maps for one set of per-segment strides, as device
+    tensors (built once per geometry, device and strides)."""
     block_seg: torch.Tensor   # i32[nb]
     block_base: torch.Tensor  # i32[nb]
     block_size: torch.Tensor  # i32[nb]
     seg_off: torch.Tensor     # i64[n_seg] first element of each slot
-    seg_n: torch.Tensor       # i32[n_seg] true slot size
+    seg_n: torch.Tensor       # i32[n_seg] sampled elements: ceil(size/stride)
+    seg_stride: torch.Tensor  # i32[n_seg]
+    seg_pad: torch.Tensor     # i32[n_seg] padded slot size
     seg_logc: torch.Tensor    # i32[n_seg] log2 of phase-1 columns
     seg_logr: torch.Tensor    # i32[n_seg] log2 of phase-1 rows
     cmax: int
+    grid_max: int             # most stride-grid positions in one slot
 
 
-def _device_maps(geom, device: torch.device) -> _DeviceMaps:
-    key = str(device)
+def _strides(stride_seg, geom) -> tuple[int, ...] | None:
+    """The one normalisation of per-segment strides: ``None`` when every
+    stride is 1 (the exact forms), else the strides as ints. Each must be
+    a power of two that divides the arena row, as
+    ``cost_model.sample_stride`` makes them."""
+    if stride_seg is None:
+        return None
+    st = tuple(int(s) for s in stride_seg)
+    if len(st) != geom.n_seg or any(
+            s < 1 or s > ROW or s & (s - 1) for s in st):
+        raise ValueError(f"strides {st} are not {geom.n_seg} powers of two "
+                         f"in [1, {ROW}]")
+    return st if any(s > 1 for s in st) else None
+
+
+def _device_maps(geom, device: torch.device,
+                 strides: tuple[int, ...] | None) -> _DeviceMaps:
+    key = (str(device), strides)
     if key not in geom.device_maps:
-        logp = [max(0, int(n - 1).bit_length()) for n in geom.seg_sizes]
+        strides = strides or (1,) * geom.n_seg
+        ns = [-(-n // s) for n, s in zip(geom.seg_sizes, strides)]
+        logp = [max(0, int(n - 1).bit_length()) for n in ns]
         logc = [min(p, LOG_COLS) for p in logp]
 
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
+        pads = [(r1 - r0) * geom.block for r0, r1 in geom.seg_rows]
         geom.device_maps[key] = _DeviceMaps(
             i32(geom.block_seg), i32(geom.block_base), i32(geom.block_size),
             torch.as_tensor(np.asarray([r0 * geom.block
                                         for r0, _ in geom.seg_rows],
                                        np.int64), device=device),
-            i32(geom.seg_sizes), i32(logc),
-            i32([p - c for p, c in zip(logp, logc)]),
-            1 << max(logc))
+            i32(ns), i32(strides), i32(pads),
+            i32(logc), i32([p - c for p, c in zip(logp, logc)]),
+            1 << max(logc), max(p // s for p, s in zip(pads, strides)))
     return geom.device_maps[key]
 
 
@@ -127,46 +169,114 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
-def seg_abs_sum_max(x2d: torch.Tensor, geom
+def seg_abs_sum_max(x2d: torch.Tensor, geom, stride_seg=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-segment (sum|x|, max|x|) over [nb, 1024] arena rows; the sum is
     ``selection.pinned_sum`` of each slot's true-length vector, bitwise.
-    """
+    With ``stride_seg`` (per-segment strides, 1 = exact) each slot
+    contributes only its ``[::stride]`` subsample, and only those
+    elements are read."""
+    strides = _strides(stride_seg, geom)
     if x2d.device.type == "cpu":
         return ref.seg_abs_sum_max(x2d, geom.block_seg, geom.block_size,
-                                   geom.n_seg)
+                                   geom.n_seg, strides)
     _check_launch(x2d, geom, "seg_abs_sum_max")
-    m = _device_maps(geom, x2d.device)
+    m = _device_maps(geom, x2d.device, strides)
     part = torch.empty((2, geom.n_seg, m.cmax), dtype=torch.float32,
                        device=x2d.device)
     out = torch.empty((2, geom.n_seg), dtype=torch.float32,
                       device=x2d.device)
     rc = _lib().seg_abs_sum_max_launch(
         x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
-        m.seg_logc.data_ptr(), m.seg_logr.data_ptr(), geom.n_seg, m.cmax,
-        part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),
-        out[1].data_ptr(), _stream())
+        m.seg_stride.data_ptr(), m.seg_logc.data_ptr(),
+        m.seg_logr.data_ptr(), geom.n_seg, m.cmax, part[0].data_ptr(),
+        part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), _stream())
     _raise_on(rc, "seg_abs_sum_max")
-    launches["seg_abs_sum_max"] += 1
+    launches["seg_abs_sum_max_strided" if strides
+             else "seg_abs_sum_max"] += 1
     return out[0], out[1]
 
 
-def seg_count_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor
-                 ) -> torch.Tensor:
+def seg_count_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
+                 stride_seg=None) -> torch.Tensor:
     """Per-segment nnz(|x| > thresholds[seg]) as i32 — one launch per
-    search iteration for the whole (super-)arena."""
+    search iteration for the whole (super-)arena. With ``stride_seg``
+    only each slot's ``[::stride]`` grid is read and counted."""
+    strides = _strides(stride_seg, geom)
     if x2d.device.type == "cpu":
-        return ref.seg_count_gt(x2d, geom.block_seg, thresholds, geom.n_seg)
+        stride_b = (np.asarray(strides, np.int32)[np.asarray(geom.block_seg)]
+                    if strides else None)
+        return ref.seg_count_gt(x2d, geom.block_seg, thresholds, geom.n_seg,
+                                stride_b)
     _check_launch(x2d, geom, "seg_count_gt")
-    m = _device_maps(geom, x2d.device)
+    m = _device_maps(geom, x2d.device, strides)
     thr = thresholds.to(torch.float32).contiguous()
     out = torch.zeros(geom.n_seg, dtype=torch.int32, device=x2d.device)
-    rc = _lib().seg_count_gt_launch(
-        x2d.data_ptr(), m.block_seg.data_ptr(), thr.data_ptr(),
-        geom.nblocks, out.data_ptr(), _stream())
+    if strides:
+        rc = _lib().seg_count_gt_strided_launch(
+            x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
+            m.seg_pad.data_ptr(), thr.data_ptr(), geom.n_seg, m.grid_max,
+            out.data_ptr(), _stream())
+    else:
+        rc = _lib().seg_count_gt_launch(
+            x2d.data_ptr(), m.block_seg.data_ptr(), thr.data_ptr(),
+            geom.nblocks, out.data_ptr(), _stream())
     _raise_on(rc, "seg_count_gt")
-    launches["seg_count_gt"] += 1
+    launches["seg_count_gt_strided" if strides else "seg_count_gt"] += 1
     return out
+
+
+def seg_residual_update_stats(
+        g2d: torch.Tensor, v2d: torch.Tensor, u2d: torch.Tensor | None,
+        p2d: torch.Tensor | None, geom, *, momentum: float, nesterov: bool,
+        weight_decay: float = 0.0, round_dtype=None, stride_seg=None
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """Alg 4's residual update over the whole arena and the per-segment
+    (sum|V'|, max|V'|) of the result, in one pass: ``g += wd * p``;
+    ``U' = m * U + g``, ``V' = V + U'`` (``+ g`` with nesterov), or
+    ``V' = V + g`` without momentum; V' optionally rounded through
+    ``round_dtype`` (bf16). Statistics as ``seg_abs_sum_max(V',
+    stride_seg)``. ``u2d`` is needed iff ``momentum``, ``p2d`` iff
+    ``weight_decay``. Returns (V', U' or None, sums, maxs)."""
+    if momentum and u2d is None:
+        raise ValueError("momentum accumulation needs the velocity arena")
+    if weight_decay and p2d is None:
+        raise ValueError("weight decay needs the parameter arena")
+    strides = _strides(stride_seg, geom)
+    if g2d.device.type == "cpu":
+        return ref.seg_residual_update_stats(
+            g2d, v2d, u2d, p2d, geom, momentum=momentum, nesterov=nesterov,
+            weight_decay=weight_decay, round_dtype=round_dtype,
+            stride_seg=strides)
+    if round_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"seg_residual_update_stats: no kernel rounds "
+                         f"through {round_dtype}")
+    ins = [g2d, v2d] + ([u2d] if momentum else []) + \
+        ([p2d] if weight_decay else [])
+    for a in ins:
+        _check_launch(a, geom, "seg_residual_update_stats")
+    m = _device_maps(geom, g2d.device, strides)
+    v_new = torch.empty_like(v2d)
+    u_new = torch.empty_like(u2d) if momentum else None
+    part = torch.empty((2, geom.n_seg, m.cmax), dtype=torch.float32,
+                       device=g2d.device)
+    out = torch.empty((2, geom.n_seg), dtype=torch.float32,
+                      device=g2d.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = _lib().seg_residual_update_stats_launch(
+        g2d.data_ptr(), v2d.data_ptr(), ptr(u2d) if momentum else None,
+        ptr(p2d) if weight_decay else None, v_new.data_ptr(), ptr(u_new),
+        momentum, int(bool(nesterov)), weight_decay,
+        int(round_dtype == torch.bfloat16), m.seg_off.data_ptr(),
+        m.seg_n.data_ptr(), m.seg_stride.data_ptr(), m.seg_pad.data_ptr(),
+        m.seg_logc.data_ptr(), m.seg_logr.data_ptr(), geom.n_seg, m.cmax,
+        part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), _stream())
+    _raise_on(rc, "seg_residual_update_stats")
+    launches["seg_residual_update_stats"] += 1
+    return v_new, u_new, out[0], out[1]
 
 
 def seg_compact_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
@@ -182,7 +292,7 @@ def seg_compact_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
     if not 1 <= cap_per_block <= ROW:
         raise ValueError(f"seg_compact_gt: cap {cap_per_block} not in "
                          f"[1, {ROW}]")
-    m = _device_maps(geom, x2d.device)
+    m = _device_maps(geom, x2d.device, None)
     thr = thresholds.to(torch.float32).contiguous()
     nb = geom.nblocks
     vals = torch.empty((nb, cap_per_block), dtype=torch.float32,
@@ -203,18 +313,23 @@ def seg_compact_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
 # Segmented selectors (Algorithm 2/3 across all slots at once)
 # ---------------------------------------------------------------------------
 
-def seg_mean(sums: torch.Tensor, geom) -> torch.Tensor:
+def seg_mean(sums: torch.Tensor, geom, stride_seg=None) -> torch.Tensor:
     """Per-segment mean: the pinned f32-reciprocal multiply of
-    ``selection.mean_of_sum``, vectorized over slots."""
-    recip = torch.tensor([np.float32(1.0 / n) for n in geom.seg_sizes],
+    ``selection.mean_of_sum``, vectorized over slots. With ``stride_seg``
+    it divides by each slot's SAMPLED count ``ceil(n / stride)``."""
+    ns = (geom.seg_sizes if stride_seg is None else
+          [-(-n // int(s)) for n, s in zip(geom.seg_sizes, stride_seg)])
+    recip = torch.tensor([np.float32(1.0 / n) for n in ns],
                          dtype=torch.float32, device=sums.device)
     return sums * recip
 
 
-def seg_stats(x2d: torch.Tensor, geom) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-segment (mean|x|, max|x|)."""
-    sums, maxs = seg_abs_sum_max(x2d, geom)
-    return seg_mean(sums, geom), maxs
+def seg_stats(x2d: torch.Tensor, geom, stride_seg=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment (mean|x|, max|x|), over each slot's ``[::stride]``
+    subsample where ``stride_seg`` gives a stride > 1."""
+    sums, maxs = seg_abs_sum_max(x2d, geom, stride_seg)
+    return seg_mean(sums, geom, stride_seg), maxs
 
 
 def _slot_flat(x2d: torch.Tensor, geom, s: int) -> torch.Tensor:
@@ -226,10 +341,12 @@ def _slot_flat(x2d: torch.Tensor, geom, s: int) -> torch.Tensor:
 class SegmentSpec(NamedTuple):
     """One arena's selection request for ``multi_select`` (see the
     reference): the search ``alg``, its ``eps``, optional per-slot message
-    ``capacities``, and the §5.2.2 reuse / warm-start runtime fields."""
+    ``capacities``, per-slot sampling ``strides`` (bsearch only; all 1 is
+    exact), and the §5.2.2 reuse / warm-start runtime fields."""
     alg: str                                # "trimmed" | "bsearch"
     eps: float
     capacities: tuple[int, ...] = ()
+    strides: tuple[int, ...] = ()
     refresh: torch.Tensor | None = None     # bool[n_seg]
     cached: torch.Tensor | None = None      # f32[n_seg]
     warm: bool = False
@@ -241,6 +358,12 @@ def _norm_caps(spec: SegmentSpec, geom) -> tuple[int, ...]:
     if spec.alg == "trimmed":
         return tuple(geom.seg_ks)
     return tuple(2 * k for k in geom.seg_ks)
+
+
+def _norm_strides(spec: SegmentSpec, geom) -> tuple[int, ...]:
+    if spec.strides and spec.alg == "bsearch":
+        return tuple(int(s) for s in spec.strides)
+    return (1,) * geom.n_seg
 
 
 def multi_select(parts: list[tuple[torch.Tensor, Any, SegmentSpec,
@@ -279,6 +402,9 @@ def multi_select(parts: list[tuple[torch.Tensor, Any, SegmentSpec,
         np.full(g.n_seg, bool(s.warm) and s.alg == "bsearch")
         for g, s in zip(geoms, specs)])
     caps_sel = sum((_norm_caps(s, g) for g, s in zip(geoms, specs)), ())
+    strides = sum((_norm_strides(s, g) for g, s in zip(geoms, specs)), ())
+    sampled = any(s > 1 for s in strides)
+    stride_vec = torch.tensor(strides, dtype=torch.int32, device=dev)
     is_trim = torch.as_tensor(trim_np, device=dev)
     eps_vec = torch.as_tensor(eps_np, device=dev)
     warm_vec = torch.as_tensor(warm_np, device=dev)
@@ -299,18 +425,21 @@ def multi_select(parts: list[tuple[torch.Tensor, Any, SegmentSpec,
 
     # --- statistics (per-segment — independent of arena grouping) -------
     if all(p[3] is None for p in parts):
-        mean, mx = seg_stats(x_all, geom_all)
+        mean, mx = seg_stats(x_all, geom_all, strides)
     else:
         means, maxs = [], []
-        for (x2d, geom, _spec, stats) in parts:
+        for (x2d, geom, spec, stats) in parts:
             if stats is None:
-                stats = seg_stats(x2d, geom)
+                stats = seg_stats(x2d, geom, _norm_strides(spec, geom))
             means.append(stats[0])
             maxs.append(stats[1])
         mean, mx = torch.cat(means), torch.cat(maxs)
 
     def count_est(thr):
-        return seg_count_gt(x_all, geom_all, thr)
+        """One launch: per-segment counts; sampled segments count their
+        subsample and scale it by the stride (exact segments: x 1)."""
+        cnt = seg_count_gt(x_all, geom_all, thr, strides)
+        return cnt * stride_vec if sampled else cnt
 
     def in_band(nz):
         return (nz >= k_vec) & (nz <= two_k)

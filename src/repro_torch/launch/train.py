@@ -6,6 +6,8 @@ Runs the paper's LSTM LM with RGC on one device, CUDA by default:
       --steps 20 --batch 20 --seq 35
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --smoke --steps 6 --batch 2 --seq 16 --density 0.02 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 20 --batch 20 --seq 35 --optimizer sampled_bsearch
 
 ``--profile N`` trains N more steps under ``torch.profiler`` and prints
 the device time by kernel and the device's busy share of those steps.

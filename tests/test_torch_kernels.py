@@ -6,12 +6,18 @@ the ``ref`` twins and the Pallas kernels in interpret mode) and
 bitwise; against the Pallas bodies counts and compaction are exact and
 sums within rtol 1e-6 (the Pallas stats body accumulates row sums in
 sequence, not the pinned tree). The CUDA kernels themselves run only on
-the card: ``test_cuda_kernels_match_twins`` (marker ``cuda``)."""
+the card: ``test_cuda_kernels_match_twins`` (marker ``cuda``).
+
+The strided (sampled) forms and the fused residual-update+stats pass
+are held the same way: their twins bitwise to ``repro.kernels.ref`` and
+``repro.core.residual.accumulate_arena``, sampled ``multi_select``
+bitwise to the reference's jnp backend."""
 import numpy as np
 import pytest
 
 SIZES = (1500, 1024, 3000)      # ragged 3-slot arena: odd, exact, 3 rows
 SEG_KS = (7, 3, 40)
+STRIDES = (16, 1, 128)          # sampled strides; 1500 and 3000 not multiples
 
 
 def _groups(sizes=SIZES, ks=SEG_KS, alg="threshold_bsearch"):
@@ -129,18 +135,24 @@ def _spec_pair(kind: str, n_seg: int, seed: int):
     rng = np.random.default_rng(seed)
     refresh = np.ones(n_seg, bool)
     cached = None
+    sampled = kind.startswith("sampled_")
+    kind = kind.removeprefix("sampled_")
     warm = kind in ("warm", "reuse")
     if warm:
         cached = np.abs(rng.standard_normal(n_seg)).astype(np.float32) + 0.5
     if kind == "reuse":
         refresh[::2] = False
+    # sampled: strided statistics and counts, 3k message capacity
+    kw = (dict(strides=STRIDES, capacities=tuple(3 * k for k in SEG_KS))
+          if sampled else {})
     j = jseg.SegmentSpec(
         alg="bsearch", eps=1e-3, refresh=jnp.asarray(refresh),
-        cached=None if cached is None else jnp.asarray(cached), warm=warm)
+        cached=None if cached is None else jnp.asarray(cached), warm=warm,
+        **kw)
     t = kseg.SegmentSpec(
         alg="bsearch", eps=1e-3, refresh=torch.from_numpy(refresh),
         cached=None if cached is None else torch.from_numpy(cached),
-        warm=warm)
+        warm=warm, **kw)
     return j, t
 
 
@@ -173,8 +185,10 @@ def _check_multi(parts_np, kinds):
                 assert bool(g.overflow) == bool(w.overflow)
 
 
-@pytest.mark.parametrize("kind,tied", [("trimmed", False), ("cold", True),
-                                       ("warm", False), ("reuse", True)])
+@pytest.mark.parametrize("kind,tied", [
+    ("trimmed", False), ("cold", True), ("warm", False), ("reuse", True),
+    ("sampled_cold", True), ("sampled_warm", False),
+    ("sampled_reuse", False)])
 def test_multi_select_matches_reference(kind, tied):
     alg = "trimmed_topk" if kind == "trimmed" else "threshold_bsearch"
     jg, tg = _groups(alg=alg)
@@ -213,6 +227,137 @@ def test_gather_topk_from_buckets_ties():
         assert tops._cap_for(cap, nb, 1024) == jops._cap_for(cap, nb, 1024)
 
 
+@pytest.mark.parametrize("tied", [False, True])
+def test_strided_twins_match_reference_bitwise(tied):
+    torch = pytest.importorskip("torch")
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels import segmented as jseg
+    from repro_torch.kernels import segmented as kseg
+    jg, tg = _groups()
+    g = tg.geometry
+    x = _arena(jg, 11, tied)
+    xt = torch.from_numpy(x)
+    stride_b = np.asarray(STRIDES, np.int32)[g.block_seg]
+    ws, wm = jref.seg_abs_sum_max(jnp.asarray(x), g.block_seg, g.block_size,
+                                  g.n_seg, STRIDES)
+    gs, gm = kseg.seg_abs_sum_max(xt, g, STRIDES)
+    np.testing.assert_array_equal(_bits(gs.numpy()), _bits(ws))
+    np.testing.assert_array_equal(_bits(gm.numpy()), _bits(wm))
+    for thr in ([0.9, 1.0, 0.0], [0.0, 0.0, 0.0]):
+        thr = np.asarray(thr, np.float32)
+        wc = jref.seg_count_gt(jnp.asarray(x), g.block_seg, jnp.asarray(thr),
+                               g.n_seg, stride_b)
+        gc = kseg.seg_count_gt(xt, g, torch.from_numpy(thr), STRIDES)
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    np.testing.assert_array_equal(
+        _bits(kseg.seg_mean(gs, g, STRIDES).numpy()),
+        _bits(jseg.seg_mean(ws, jg.geometry, STRIDES)))
+
+
+@pytest.mark.parametrize("momentum,nesterov,wd,bf16", [
+    (0.9, False, 0.0, False), (0.9, True, 1e-4, False),
+    (0.0, False, 0.0, False), (0.9, False, 0.0, True)])
+def test_residual_update_stats_twin_matches_reference(momentum, nesterov, wd,
+                                                      bf16):
+    """V'/U' bitwise ``accumulate_arena`` (eager), sums bitwise the
+    reference twin's pinned (strided) stats of V'; against the Pallas
+    body in interpret mode within 1 ulp of the largest operand per
+    multiply-add XLA may contract into an FMA (``wd * p + g`` and
+    ``m * U + g``: one rounding where the twin has two), carried through
+    each further rounded add (one bf16 ulp when V' is rounded to bf16);
+    sums rtol 1e-6 (the body sums rows in sequence), max exact."""
+    torch = pytest.importorskip("torch")
+    import jax.numpy as jnp
+
+    from repro.core import residual as jres
+    from repro.kernels import ref as jref
+    from repro.kernels import segmented as jseg
+    from repro_torch.kernels import segmented as kseg
+    jg, tg = _groups()
+    geo = tg.geometry
+    g, v, u, p = (_arena(jg, 20 + i) * sc for i, sc in
+                  enumerate((1e-2, 1e-3, 1e-3, 0.5)))
+    kw = dict(momentum=momentum, nesterov=nesterov, weight_decay=wd)
+    t = [torch.from_numpy(a) for a in (g, v, u, p)]
+    for strides in (STRIDES, None):
+        tv, tu, ts, tm = kseg.seg_residual_update_stats(
+            *t, geo, round_dtype=torch.bfloat16 if bf16 else None,
+            stride_seg=strides, **kw)
+        wv, wu = jres.accumulate_arena(
+            *(jnp.asarray(a) for a in (g, v, u, p)),
+            residual_dtype=jnp.bfloat16 if bf16 else jnp.float32, **kw)
+        np.testing.assert_array_equal(_bits(tv.numpy()), _bits(wv))
+        assert (tu is None) == (wu is None) == (not momentum)
+        if momentum:
+            np.testing.assert_array_equal(_bits(tu.numpy()), _bits(wu))
+        ws, wm = jref.seg_abs_sum_max(wv, geo.block_seg, geo.block_size,
+                                      geo.n_seg, strides)
+        np.testing.assert_array_equal(_bits(ts.numpy()), _bits(ws))
+        np.testing.assert_array_equal(_bits(tm.numpy()), _bits(wm))
+    pv, pu, ps, pm = jseg.seg_residual_update_stats(
+        jnp.asarray(g), jnp.asarray(v),
+        jnp.asarray(u) if momentum else None, jnp.asarray(p) if wd else None,
+        geo.block_seg, geo.n_seg, round_dtype=jnp.bfloat16 if bf16 else None,
+        interpret=True, **kw)
+    scale = np.maximum.reduce([np.abs(np.asarray(a)) for a in (
+        g + wd * p, momentum * u, v, pv, pu if momentum else v)])
+    u_ulps = 1 + bool(wd)
+    v_ulps = u_ulps + 1 + nesterov
+    assert np.all(np.abs(tv.numpy() - np.asarray(pv))
+                  <= (2 ** 16 if bf16 else v_ulps) * np.spacing(scale))
+    if momentum:
+        assert np.all(np.abs(tu.numpy() - np.asarray(pu))
+                      <= u_ulps * np.spacing(scale))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ps), rtol=1e-6)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(pm))
+
+
+@pytest.mark.parametrize("interval,warm", [(0, False), (0, True), (3, True)])
+def test_sampled_per_leaf_one_slot_arena_matches_search(interval, warm):
+    """A lone sampled leaf through a one-slot arena and ``multi_select``
+    (the CUDA route) equals ``selection.sampled_threshold_search`` of
+    both packages bitwise, and so does the CPU ``compress``; interval 3
+    is a reuse step."""
+    torch = pytest.importorskip("torch")
+    import jax.numpy as jnp
+
+    from repro.core import arena as jarena
+    from repro.core import selection as jsel
+    from repro_torch.core import arena as tarena
+    from repro_torch.core import compressors
+    from repro_torch.core.residual import init_leaf
+    n, k = 5000, 100
+    x = _arena(jarena.build_group(0, "x", "float32",
+                                  [(0, "x", n, k, 3 * k, 1)]), 14)
+    flat = x.reshape(-1)[:n]
+    thr0 = np.float32(0.7)
+    comp = compressors.SampledBSearch(warm_start=warm)
+    stride = 4
+    assert comp.segment_strides(tarena.single_slot_geometry(n, k)) == \
+        (stride,)
+    st = init_leaf(torch.zeros(n))._replace(
+        threshold=torch.tensor(thr0), interval=torch.tensor(interval,
+                                                           dtype=torch.int32))
+    if interval % comp.interval == 0:
+        w, wthr = jsel.sampled_threshold_search(
+            jnp.asarray(flat), k, stride=stride, capacity=3 * k,
+            warm=jnp.float32(thr0) if warm else None)
+    else:
+        w, wthr = jsel.threshold_filter(jnp.asarray(flat), thr0, 3 * k), thr0
+    for sel, new in (comp.compress_arena(torch.from_numpy(flat), k, st),
+                     comp.compress(torch.from_numpy(flat), k, st)):
+        np.testing.assert_array_equal(sel.indices.numpy(),
+                                      np.asarray(w.indices))
+        np.testing.assert_array_equal(_bits(sel.values.numpy()),
+                                      _bits(w.values))
+        assert int(sel.count) == int(w.count)
+        assert bool(sel.overflow) == bool(w.overflow)
+        assert _bits(new.threshold.numpy()) == _bits(wthr)
+        assert int(new.interval) == interval + 1
+
+
 def _port_group(sizes=SIZES, ks=SEG_KS):
     from repro_torch.core import arena
     return arena.build_group(0, "threshold_bsearch", "float32", [
@@ -233,8 +378,9 @@ def _need_cuda():
 @pytest.mark.cuda
 def test_cuda_kernels_match_twins():
     """On the card: each CUDA kernel against its plain twin on the same
-    CUDA tensors (bitwise sums, exact counts and compaction), with ties,
-    threshold 0 and bucket overflow."""
+    CUDA tensors (bitwise sums, exact counts and compaction, bitwise
+    fused residual update), with ties, threshold 0, bucket overflow and
+    strides off the slot sizes."""
     torch = _need_cuda()
     from repro_torch.kernels import ref
     from repro_torch.kernels import segmented as kseg
@@ -254,6 +400,30 @@ def test_cuda_kernels_match_twins():
                                   g.block_size, thr, 8)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+        # the strided (sampled) forms and the fused residual update
+        ks, km = kseg.seg_abs_sum_max(x, g, STRIDES)
+        ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg,
+                                     STRIDES)
+        assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+        assert torch.equal(km, pm)
+        assert torch.equal(
+            kseg.seg_count_gt(x, g, thr, STRIDES),
+            ref.seg_count_gt(x, g.block_seg, thr, g.n_seg,
+                             np.asarray(STRIDES, np.int32)[g.block_seg]))
+        u, p = x * 0.5, x * 0.25
+        for m, nest, wd, rd in ((0.9, False, 0.0, None),
+                                (0.9, True, 1e-4, None),
+                                (0.0, False, 0.0, None),
+                                (0.9, False, 0.0, torch.bfloat16)):
+            kw = dict(momentum=m, nesterov=nest, weight_decay=wd,
+                      round_dtype=rd, stride_seg=STRIDES)
+            got = kseg.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
+            want = ref.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -58,11 +58,9 @@ def test_data_streams_identical():
                                   .batch_at(5)["tokens"])
 
 
-def test_trainer_steps_match_reference():
-    """Three RGC steps (trimmed arena + dense leaves at smoke width) of
-    the port's Trainer on the CPU against the JAX Trainer(mesh=None) from
-    the same carried-over initial params."""
-    pytest.importorskip("torch")
+def _trainer_losses(kw):
+    """Three steps of the JAX Trainer(mesh=None) and of the port's Trainer
+    on the CPU, from the same carried-over initial params."""
     import jax
 
     from repro.configs import TrainConfig as JTC
@@ -75,7 +73,6 @@ def test_trainer_steps_match_reference():
     from repro_torch.data import bigram_batches
     from repro_torch.train.trainer import Trainer
 
-    kw = dict(lr=0.2, optimizer="rgc", density=0.01)
     jtr = JTrainer(get_config("paper-lstm", smoke=True), JTC(**kw))
     jstate = jtr.init_state()
     params = jax.tree.map(np.asarray, jstate.params)
@@ -88,6 +85,23 @@ def test_trainer_steps_match_reference():
     got = []
     tr.run(state, bigram_batches(512, BATCH, SEQ, seed=0), 3, log_every=0,
            on_metrics=lambda s, d, loss: got.append(loss))
+    return got, want
+
+
+def test_trainer_steps_match_reference():
+    """Three RGC steps (trimmed arena + dense leaves at smoke width)."""
+    pytest.importorskip("torch")
+    got, want = _trainer_losses(dict(lr=0.2, optimizer="rgc", density=0.01))
+    assert len(got) == 3 and all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_trainer_sampled_fused_steps_match_reference():
+    """Three steps of path 2b at smoke width: ``sampled_bsearch`` on every
+    leaf (one nine-slot arena, strided slots) with ``fuse_accumulate``."""
+    pytest.importorskip("torch")
+    got, want = _trainer_losses(dict(lr=0.2, optimizer="sampled_bsearch",
+                                     density=0.01, fuse_accumulate=True))
     assert len(got) == 3 and all(np.isfinite(got))
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
@@ -164,3 +178,10 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
         kseg.seg_abs_sum_max(x, g)
     with pytest.raises(ValueError, match="no kernel"):
         kseg.seg_compact_gt(x, g, thr, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        kseg.seg_count_gt(x, g, thr, (4,))
+    with pytest.raises(ValueError, match="no kernel"):
+        kseg.seg_abs_sum_max(x, g, (4,))
+    with pytest.raises(ValueError, match="no kernel"):
+        kseg.seg_residual_update_stats(x, x, None, None, g, momentum=0.0,
+                                       nesterov=False, stride_seg=(4,))

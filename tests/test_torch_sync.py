@@ -170,3 +170,121 @@ def test_residual_accumulate_and_masks_match_reference(momentum, nesterov,
     assert (tu is None) == (wu is None)
     if wu is not None:
         np.testing.assert_array_equal(_bits(tu.numpy()), _bits(wu))
+
+
+def _jit_pinned_stages(monkeypatch):
+    """Run the reference's ``multi_select`` and sparse decompression under
+    ``jax.jit`` inside an otherwise eager update: their arithmetic is
+    pinned or exact (jit and eager agree bitwise), and op by op they
+    compile hundreds of tiny programs."""
+    import jax
+
+    from repro.core import sync as jsync_lib
+    from repro.kernels import segmented as jseg
+    orig = jseg.multi_select
+    monkeypatch.setattr(jsync_lib, "unpack_decompress", jax.jit(
+        jsync_lib.unpack_decompress, static_argnums=(1, 2, 3)))
+
+    def jitted(parts, *, use_pallas, interpret=None):
+        static = [(g, sp._replace(refresh=None, cached=None))
+                  for _, g, sp, _ in parts]
+
+        def run(dyn):
+            return orig([(x, g, sp._replace(refresh=r, cached=c), st)
+                         for (x, st, r, c), (g, sp) in zip(dyn, static)],
+                        use_pallas=use_pallas, interpret=interpret)
+        return jax.jit(run)([(x, st, sp.refresh, sp.cached)
+                             for x, _, sp, st in parts])
+    monkeypatch.setattr(jseg, "multi_select", jitted)
+
+
+@pytest.mark.parametrize("fuse_acc,momentum,bf16", [
+    (False, 0.0, False), (True, 0.0, False), (False, 0.9, False),
+    (True, 0.9, False), (False, 0.9, True)])
+def test_sampled_sync_update_matches_reference(fuse_acc, momentum, bf16,
+                                               monkeypatch):
+    """``sampled_bsearch`` on every leaf (strides 8, 2, 1, 8, 1 at density
+    0.05), per-leaf or fused residual accumulation, bf16 residuals in one
+    case. The reference runs under ``jax.jit`` and all but params (the
+    unpinned ``p - lr * upd``) are bitwise; with momentum AND its fused
+    path it runs eagerly (but for its pinned selection), since under jit
+    that path may contract ``m * U + g`` (it allows 1 ulp), and then
+    params are bitwise too.
+    The port's fused and per-leaf accumulation are bitwise equal to each
+    other."""
+    torch = pytest.importorskip("torch")
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.gradient_sync import build_gradient_sync as jbuild
+    from repro_torch import convert
+    from repro_torch.core.gradient_sync import build_gradient_sync as tbuild
+
+    params, grads = _tree(3, 0.5), _tree(4, 1e-2)
+    kw = dict(density=0.05, momentum=momentum, fuse_accumulate=fuse_acc)
+    jsync = jbuild("sampled_bsearch", residual_dtype=(
+        jnp.bfloat16 if bf16 else jnp.float32), **kw)
+    rd = torch.bfloat16 if bf16 else torch.float32
+    state = _random_state(jsync, params, 5)
+    if bf16:
+        state = jax.tree.map(
+            lambda st: st._replace(residual=np.asarray(
+                jnp.asarray(st.residual, jnp.bfloat16))), state,
+            is_leaf=lambda x: hasattr(x, "_fields"))
+
+    jsent = []
+    jsync.transport.allgather = (
+        lambda ms, f=jsync.transport.allgather: jsent.extend(ms) or f(ms))
+
+    def jstep(g, s, p, lr):
+        jsent.clear()
+        return jsync.update(g, s, p, lr), list(jsent)
+    eager = bool(momentum) and fuse_acc
+    if eager:
+        _jit_pinned_stages(monkeypatch)
+    else:
+        jstep = jax.jit(jstep)
+    (jp, js), jmsgs = jstep(
+        *(jax.tree.map(jnp.asarray, t) for t in (grads, state, params)),
+        jnp.float32(LR))
+    jp, js = jax.tree.map(np.asarray, jp), jax.tree.map(np.asarray, js)
+    is_ls = {"is_leaf": lambda x: hasattr(x, "_fields")}
+
+    outs = []
+    for fuse in (fuse_acc, not fuse_acc):
+        tsync = tbuild("sampled_bsearch", device="cpu", residual_dtype=rd,
+                       **dict(kw, fuse_accumulate=fuse))
+        tsent = []
+        tsync.transport.allgather = (
+            lambda ms, f=tsync.transport.allgather, o=tsent:
+            o.extend(ms) or f(ms))
+        tp, ts = tsync.update(convert.from_numpy(grads),
+                              convert.from_numpy(state),
+                              convert.from_numpy(params),
+                              torch.tensor(LR, dtype=torch.float32))
+        assert all(s.residual.dtype == rd for s in ts.values()
+                   if hasattr(s, "residual"))
+        outs.append((convert.to_numpy(tp), convert.to_numpy(ts), tsent))
+    (tp, ts, tsent), (tp2, ts2, tsent2) = outs
+
+    for a, b, p0 in zip(jax.tree.leaves(tp), jax.tree.leaves(jp),
+                        jax.tree.leaves(params)):
+        if eager:
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        else:
+            _assert_fma_close(a, b, p0, p0 - b, ulps=2)
+    for w, g in zip(jax.tree.leaves(js, **is_ls),
+                    jax.tree.leaves(ts, **is_ls)):
+        for fw, fg in zip(w, g):
+            fw = np.asarray(fw)
+            if fw.dtype.name == "bfloat16":     # the port hands back f32
+                fw = fw.astype(np.float32)
+            assert np.asarray(fg).dtype == fw.dtype
+            np.testing.assert_array_equal(_bits(fg), _bits(fw))
+    assert len(jmsgs) == len(tsent) > 0
+    for w, g in zip(jmsgs, tsent):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+    for a, b in zip(jax.tree.leaves((tp, ts, [m.numpy() for m in tsent])),
+                    jax.tree.leaves((tp2, ts2, [m.numpy() for m in tsent2]))):
+        np.testing.assert_array_equal(_bits(np.asarray(a, np.float32)),
+                                      _bits(np.asarray(b, np.float32)))
