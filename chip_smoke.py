@@ -13,29 +13,40 @@ the JAX package. Phases, each fatal on failure:
    bitwise, counts and compaction exactly, the fused residual update's
    V'/U' bitwise — and each kernel's device time (20 launches in one
    CUDA graph, CUDA events) beside its bound, its per-call time from the
-   host and its twin's time. The exact forms run at the full-width arena of
-   the paper's 2-layer 1500-unit LSTM under the default dispatch (six
-   slots, 64,458 rows) and on a small ragged arena with ties, threshold 0
-   and bucket overflow; the strided (sampled) forms and the fused
-   residual-update+stats pass at the full-width nine-slot sampled arena
-   (strides 512 and 1, 64,480 rows) and on a ragged arena with strides
-   1-1024, slot sizes off the stride, ties and threshold 0; the fused
-   pass with momentum 0.9, with nesterov and weight decay, without
-   momentum and with a bf16 round;
+   host and its twin's time. The exact segmented forms run at the
+   full-width arena of the paper's 2-layer 1500-unit LSTM under the
+   default dispatch (six slots, 64,458 rows) and on a small ragged arena
+   with ties, threshold 0 and bucket overflow; the strided (sampled)
+   forms and the fused residual-update+stats pass at the full-width
+   nine-slot sampled arena (strides 512 and 1, 64,480 rows) and on a
+   ragged arena with strides 1-1024, slot sizes off the stride, ties and
+   threshold 0; the fused pass with momentum 0.9, with nesterov and
+   weight decay, without momentum and with a bf16 round. The per-leaf
+   kernels (count_gt, abs_sum_max, compact_gt, its exact form
+   compact_gt_exact at up to four capacities, residual_update) run on the
+   full-width leaves (15M and 9M elements, a threshold that overflows the
+   16-wide buckets in 100 rows, and threshold 0), on tied leaves of 1 to
+   70,000 elements and on a misaligned view, every output bitwise;
+   abs_sum_max is also timed against torch.linalg.vector_norm as a
+   yardstick;
 4. two full-width ``GradientSync.update`` steps (refresh, then threshold
    reuse) with the kernels, and again with the twins on the same CUDA
-   tensors, for ``rgc`` and for ``sampled_bsearch`` with
-   ``fuse_accumulate`` off and on: params, residual, momentum, thresholds
-   and packed messages bitwise equal, and sampled fused equal to sampled
-   per-leaf accumulation;
-5. three paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
+   tensors, for ``rgc`` (arena, and per leaf: 3a), ``trimmed_topk`` per
+   leaf (3b) and ``sampled_bsearch`` with ``fuse_accumulate`` off and
+   on: params, residual, momentum, thresholds and packed messages
+   bitwise equal; sampled fused equal to sampled per-leaf accumulation;
+   and after one update, per leaf (3a) equal to arena (default);
+5. five paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
    8 steps each of a seeded synthetic stream (batch 20 x seq 35): the
-   default (``rgc``), 2a (``optimizer="sampled_bsearch"``) and 2b (the
-   same with ``fuse_accumulate=True``). Kernel launch counts are zeroed
-   just before each path and read just after; every loss must be finite,
-   each path must launch the kernels it names, and every kernel must be
-   launched on some path; with ``--profile N``, N more steps of each
-   path under ``torch.profiler`` print its device time by kernel;
+   default (``rgc``), 2a (``optimizer="sampled_bsearch"``), 2b (the
+   same with ``fuse_accumulate=True``), 3a (``fuse_leaves=False``) and
+   3b (``optimizer="trimmed_topk", fuse_leaves=False``). Kernel launch
+   counts and the per-leaf selectors' branch counts (exact compaction
+   after a bucket overflow, short pick) are zeroed just before each path
+   and read just after; every loss must be finite, each path must launch the
+   kernels it names, and every kernel must be launched on some path;
+   with ``--profile N``, N more steps of each path under
+   ``torch.profiler`` print its device time by kernel;
 6. a JSON line per kernel (time, bound, launches on each path, error),
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -104,20 +115,25 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_kernel(name: str, kern, plain, nbytes: int, ops: int) -> dict:
+def time_kernel(name: str, kern, plain, nbytes: int, ops: int, *,
+                source: str = "segmented.cu", library=None) -> dict:
     """Device time (graph), per-call time (events, host included), the
-    twin's time and the bound of one kernel; prints one line."""
+    twin's time, the bound of one kernel and, where one PyTorch call
+    computes the same function, that call's device time (graph); prints
+    one line."""
     ms = graph_ms(kern, 20)
     call_ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(plain, 3)
+    lib_ms = None if library is None else graph_ms(library, 20)
     b_ms, b_by = bound_ms(nbytes, ops)
+    lib = "" if lib_ms is None else f"; library call {lib_ms:.4f} ms"
     print(f"[kernels] {name}: {ms:.4f} ms on the device (bound {b_ms:.4f} "
           f"ms by {b_by}, {b_ms / ms:.1%} of it); {call_ms:.4f} ms per "
-          f"call from the host; plain twin {plain_ms:.4f} ms")
+          f"call from the host; plain twin {plain_ms:.4f} ms{lib}")
     return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/segmented.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "launches": None, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -427,6 +443,163 @@ def phase_sampled_kernels(results: dict) -> None:
                              max_abs_err=err[name])
 
 
+# The per-leaf kernels and the TPU kernel each replaces.
+LEAF_REPLACES = {
+    "count_gt": "src/repro/kernels/threshold_count.py:28",
+    "abs_sum_max": "src/repro/kernels/block_stats.py:28",
+    "compact_gt": "src/repro/kernels/compact.py:51",
+    "compact_gt_exact": "src/repro/kernels/compact.py:51",
+    "residual_update": "src/repro/kernels/residual_update.py:28"}
+LEAF_RAGGED = (1, 1000, 1024, 1025, 5000, 70_000)
+
+
+def _leaf_twins() -> dict:
+    """The plain twin of each per-leaf wrapper, with the wrapper's
+    arguments (flat leaves)."""
+    from repro_torch.kernels import ref
+    return {
+        "count_gt": lambda x, t: ref.count_gt(ref.rows(x), t),
+        "abs_sum_max": lambda x: ref.abs_sum_max(ref.rows(x), x.numel()),
+        "compact_gt": lambda x, t, cap: ref.compact_gt(ref.rows(x), t, cap,
+                                                       x.numel()),
+        "compact_gt_exact": lambda x, t, counts, capacity:
+            ref.compact_gt_exact(ref.rows(x), t, capacity, x.numel()),
+        "residual_update": ref.residual_update}
+
+
+def _full_width_leaf(n: int, gen):
+    """A seeded full-width leaf: normal values, with the first 100 rows
+    scaled by 4 so that a threshold of 3 overflows a 16-wide bucket in
+    those rows and in no other."""
+    import torch
+    x = torch.randn(n, generator=gen, device="cuda")
+    x[:100 * 1024] *= 4.0
+    return x
+
+
+def phase_leaf_kernels(results: dict) -> None:
+    """The per-leaf kernels against their twins, bitwise, on the
+    full-width leaves (15M and 9M elements), on ragged tied leaves and on
+    a misaligned view; then their times at full width."""
+    import torch
+    from repro_torch.kernels import (block_stats, compact, residual_update,
+                                     threshold_count)
+    from repro_torch.kernels.ops import _cap_for
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    same_bits, max_err = _same_bits, _max_err
+    twin = _leaf_twins()
+
+    def tied(n):
+        return torch.randint(-4, 5, (n,), generator=gen,
+                             device=dev).to(torch.float32) * 0.5
+
+    full = {n: _full_width_leaf(n, gen) for n in (15_000_000, 9_000_000)}
+    cases = [(f"full-width n={n:,}", x, (3.0, 0.0),
+              _cap_for(2 * math.ceil(0.001 * n), -(-n // 1024), 1024),
+              2 * math.ceil(0.001 * n)) for n, x in full.items()]
+    cases += [(f"ragged tied n={n}", tied(n), (1.0, 0.0), 8, 50)
+              for n in LEAF_RAGGED]
+    cases.append(("misaligned n=5000", tied(5001)[1:], (1.0, 0.0), 8, 50))
+    err = {k: 0.0 for k in LEAF_REPLACES}
+    for label, x, thrs, cap, msg in cases:
+        ok = {k: True for k in LEAF_REPLACES}
+        overflow_rows = []
+        n = x.numel()
+        for thr in thrs:
+            t = torch.tensor(thr, device=dev)
+            kc, pc = threshold_count.count_gt(x, t), twin["count_gt"](x, t)
+            kb, pb = compact.compact_gt(x, t, cap), twin["compact_gt"](x, t,
+                                                                       cap)
+            torch.cuda.synchronize()
+            ok["count_gt"] &= same_bits(kc, pc)
+            ok["compact_gt"] &= all(same_bits(a, b) for a, b in zip(kb, pb))
+            err["count_gt"] = max(err["count_gt"], max_err(kc, pc))
+            err["compact_gt"] = max(err["compact_gt"],
+                                    *(max_err(a, b) for a, b in zip(kb, pb)))
+            overflow_rows.append(int((kb[2] > cap).sum()))
+            # the exact form at one slot, the filter's capacity, every
+            # survivor, and the whole leaf (padding after the survivors)
+            for capacity in sorted({1, min(n, msg), min(n, int(kc)) or 1,
+                                    n}):
+                ke = compact.compact_gt_exact(x, t, kb[2], capacity)
+                pe = twin["compact_gt_exact"](x, t, kb[2], capacity)
+                ok["compact_gt_exact"] &= all(same_bits(a, b)
+                                              for a, b in zip(ke, pe))
+                err["compact_gt_exact"] = max(
+                    err["compact_gt_exact"],
+                    *(max_err(a, b) for a, b in zip(ke, pe)))
+        ks, pk = block_stats.abs_sum_max(x), twin["abs_sum_max"](x)
+        ok["abs_sum_max"] = all(same_bits(a, b) for a, b in zip(ks, pk))
+        err["abs_sum_max"] = max(err["abs_sum_max"],
+                                 *(max_err(a, b) for a, b in zip(ks, pk)))
+        g = torch.randn(x.shape, generator=gen, device=dev) * 1e-3
+        u = torch.randn(x.shape, generator=gen, device=dev) * 1e-2
+        for nesterov in (False, True):
+            kw = dict(momentum=0.9, nesterov=nesterov)
+            got = residual_update.residual_update(g, u, x, **kw)
+            want = twin["residual_update"](g, u, x, **kw)
+            ok["residual_update"] &= all(same_bits(a, b)
+                                         for a, b in zip(got, want))
+            err["residual_update"] = max(
+                err["residual_update"],
+                *(max_err(a, b) for a, b in zip(got, want)))
+        torch.cuda.synchronize()
+        print(f"[leaf] {label}: " + ", ".join(
+            f"{k} {'equal' if v else 'DIFFERS'}" for k, v in ok.items())
+            + f"; cap {cap}, rows over cap at thresholds {thrs}: "
+            f"{overflow_rows}")
+        if not all(ok.values()):
+            _fail(f"a per-leaf kernel differs from its twin on {label}")
+
+    # timing at the shapes the per-leaf paths give the kernels
+    for n, x in full.items():
+        t = torch.tensor(3.0, device=dev)
+        cap = _cap_for(2 * math.ceil(0.001 * n), -(-n // 1024), 1024)
+        nb = -(-n // 1024)
+        g = torch.randn(n, generator=gen, device=dev) * 1e-3
+        u = torch.randn(n, generator=gen, device=dev) * 1e-2
+        kw = dict(momentum=0.9, nesterov=False)
+        counts = compact.compact_gt(x, t, cap)[2]
+        # the exact form as the trimmed top-k runs it: every survivor
+        alive = int(counts.sum())
+        print(f"[leaf] compact_gt_exact n={n:,}: {alive:,} survivors of "
+              f"threshold 3, all written")
+        timing = {
+            "count_gt": (lambda: threshold_count.count_gt(x, t),
+                         lambda: twin["count_gt"](x, t),
+                         4 * n + 4 + 4, 3 * n, None),
+            "abs_sum_max": (lambda: block_stats.abs_sum_max(x),
+                            lambda: twin["abs_sum_max"](x), 4 * n + 8, 3 * n,
+                            lambda: torch.linalg.vector_norm(x, 1)),
+            "compact_gt": (lambda: compact.compact_gt(x, t, cap),
+                           lambda: twin["compact_gt"](x, t, cap),
+                           4 * n + 4 + nb * cap * 8 + nb * 4, 3 * n, None),
+            "compact_gt_exact": (
+                lambda: compact.compact_gt_exact(x, t, counts, alive),
+                lambda: twin["compact_gt_exact"](x, t, counts, alive),
+                4 * n + 4 + nb * 4 + alive * 8, 3 * n, None),
+            "residual_update": (
+                lambda: residual_update.residual_update(g, u, x, **kw),
+                lambda: twin["residual_update"](g, u, x, **kw),
+                5 * 4 * n, 3 * n, None),
+        }
+        for name, (kern, plain, nbytes, ops, lib) in timing.items():
+            row = time_kernel(f"{name} n={n:,}", kern, plain, nbytes, ops,
+                              source="leaf.cu", library=lib)
+            if n == 15_000_000:
+                row.update(name=name, replaces=LEAF_REPLACES[name],
+                           max_abs_err=err[name])
+                results[name] = row
+        del g, u
+    print("[leaf] library_ms: abs_sum_max against torch.linalg.vector_norm"
+          "(x, 1), which sums in its own order (a yardstick only); no one "
+          "PyTorch call counts |x| > t, buckets survivors, returns the "
+          "first survivors' values and indices, or returns both U' and V'")
+
+
 def _full_width_tree(gen, dev, scale: float):
     import torch
     from repro_torch.configs import paper_lstm
@@ -463,16 +636,27 @@ def _twins_patched():
             x, g.block_seg, g.block_base, g.block_size, t, c)))
     stack.enter_context(mock.patch.object(
         kseg, "seg_residual_update_stats", ref.seg_residual_update_stats))
+    from repro_torch.kernels import (block_stats, compact, residual_update,
+                                     threshold_count)
+    twin = _leaf_twins()
+    for mod, name in ((threshold_count, "count_gt"),
+                      (block_stats, "abs_sum_max"), (compact, "compact_gt"),
+                      (compact, "compact_gt_exact"),
+                      (residual_update, "residual_update")):
+        stack.enter_context(mock.patch.object(mod, name, twin[name]))
     return stack
 
 
 def phase_sync() -> None:
     """Two full-width updates with kernels vs with the twins patched in,
-    for rgc and for sampled_bsearch with per-leaf and fused accumulation;
-    then sampled fused vs sampled per-leaf accumulation."""
+    for rgc (arena, and per leaf: 3a), trimmed_topk per leaf (3b) and
+    sampled_bsearch with per-leaf and fused accumulation; then sampled
+    fused vs sampled per-leaf accumulation, and the state after one
+    per-leaf update (3a) vs after one arena update (default)."""
     import torch
     from repro_torch.core import tree
     from repro_torch.core.gradient_sync import build_gradient_sync
+    from repro_torch.kernels import common
     from repro_torch.kernels import segmented as kseg
 
     dev = torch.device("cuda")
@@ -482,8 +666,11 @@ def phase_sync() -> None:
     grads = [_full_width_tree(gen, dev, 1e-3) for _ in range(2)]
     lr = torch.tensor(0.1, dtype=torch.float32, device=dev)
 
-    def run(optimizer, fuse_accumulate):
+    def run(optimizer, fuse_leaves, fuse_accumulate):
+        """(params, state, messages) after the two updates, and (params,
+        state) after the first."""
         sync = build_gradient_sync(optimizer, device=dev,
+                                   fuse_leaves=fuse_leaves,
                                    fuse_accumulate=fuse_accumulate)
         sent = []
         gather = sync.transport.allgather
@@ -493,10 +680,12 @@ def phase_sync() -> None:
             return gather(messages)
         sync.transport.allgather = spy
         p, st = params, sync.init(params)
+        states = []
         for g in grads:
             p, st = sync.update(g, st, p, lr)
+            states.append((p, st))
         torch.cuda.synchronize()
-        return p, st, sent
+        return p, st, sent, states[0]
 
     def flat(x):
         out = []
@@ -504,37 +693,46 @@ def phase_sync() -> None:
             out.extend(leaf if isinstance(leaf, tuple) else [leaf])
         return out
 
-    def bitwise(a_run, b_run) -> bool:
-        (pa, sa, ma), (pb, sb, mb) = a_run, b_run
-        if len(ma) != len(mb) or not ma:
-            return False
-        pairs = list(zip(flat(pa), flat(pb))) + list(zip(flat(sa), flat(sb)))
-        for a, b in pairs + list(zip(ma, mb)):
+    def equal(pairs) -> bool:
+        for a, b in pairs:
             if a.dtype == torch.float32:
                 a, b = a.view(torch.int32), b.view(torch.int32)
             if not torch.equal(a, b):
                 return False
         return True
 
+    def bitwise(a_run, b_run) -> bool:
+        (pa, sa, ma, _), (pb, sb, mb, _) = a_run, b_run
+        if len(ma) != len(mb) or not ma:
+            return False
+        return equal(list(zip(flat(pa), flat(pb)))
+                     + list(zip(flat(sa), flat(sb))) + list(zip(ma, mb)))
+
     kept = {}
-    for optimizer, fuse in (("rgc", False), ("sampled_bsearch", False),
-                            ("sampled_bsearch", True)):
-        label = f"{optimizer} fuse_accumulate={fuse}"
+    for optimizer, fuse_leaves, fuse in (
+            ("rgc", True, False), ("sampled_bsearch", True, False),
+            ("sampled_bsearch", True, True), ("rgc", False, False),
+            ("trimmed_topk", False, False)):
+        label = (f"{optimizer} fuse_leaves={fuse_leaves} "
+                 f"fuse_accumulate={fuse}")
         before = dict(kseg.launches)
+        took = dict(common.branches)
         t0 = time.perf_counter()
-        with_kernels = run(optimizer, fuse)
+        with_kernels = run(optimizer, fuse_leaves, fuse)
         t_k = time.perf_counter() - t0
         used = {k: kseg.launches[k] - before[k] for k in before
                 if kseg.launches[k] != before[k]}
+        took = {k: common.branches[k] - took[k] for k in took}
         before = dict(kseg.launches)
         with _twins_patched():
             t0 = time.perf_counter()
-            with_twins = run(optimizer, fuse)
+            with_twins = run(optimizer, fuse_leaves, fuse)
             t_p = time.perf_counter() - t0
         if kseg.launches != before:
             _fail("the twin run launched a kernel")
         print(f"[sync] {label}: 2 full-width updates: kernels {t_k:.2f} s "
-              f"(launches {used}), plain twins {t_p:.2f} s")
+              f"(launches {used}; branches {took}), plain twins "
+              f"{t_p:.2f} s")
         if not bitwise(with_kernels, with_twins):
             _fail(f"full-width GradientSync.update ({label}) differs "
                   f"between the kernels and the plain twins")
@@ -542,26 +740,40 @@ def phase_sync() -> None:
         print(f"[sync] {label}: params, residual, momentum, thresholds and "
               f"{len(with_kernels[2])} packed messages bitwise equal; "
               f"thresholds {thr}")
-        if optimizer == "sampled_bsearch":
-            kept[fuse] = with_kernels
+        if optimizer != "trimmed_topk":
+            kept[(optimizer, fuse_leaves, fuse)] = with_kernels
         del with_twins
-    if not bitwise(kept[False], kept[True]):
+    if not bitwise(kept[("sampled_bsearch", True, False)],
+                   kept[("sampled_bsearch", True, True)]):
         _fail("sampled_bsearch: fuse_accumulate=True differs from False")
     print("[sync] sampled_bsearch: fuse_accumulate True and False bitwise "
           "equal on the card")
+    (pa, sa), (pb, sb) = (kept[("rgc", fl, False)][3] for fl in (True, False))
+    fields = [(a, b) for x, y in zip(tree.flatten(sa)[0], tree.flatten(sb)[0])
+              for a, b in ((x.residual, y.residual), (x.momentum, y.momentum),
+                           (x.threshold, y.threshold))]
+    if not equal(list(zip(flat(pa), flat(pb))) + fields):
+        _fail("one per-leaf rgc update (3a) differs from one arena update")
+    print("[sync] rgc: after one update, per leaf (3a) and arena (default) "
+          "params, residual, momentum and thresholds bitwise equal")
 
 
+LEAF_KERNELS = tuple(LEAF_REPLACES)
 # (key, label, TrainConfig overrides, kernels the path must launch)
 PATHS = (
     ("default", "default", {},
-     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt")),
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+      "residual_update")),
     ("2a", "2a sampled_bsearch", {"optimizer": "sampled_bsearch"},
      ("seg_abs_sum_max_strided", "seg_count_gt_strided", "seg_count_gt",
-      "seg_compact_gt")),
+      "seg_compact_gt", "residual_update")),
     ("2b", "2b sampled_bsearch fuse_accumulate",
      {"optimizer": "sampled_bsearch", "fuse_accumulate": True},
      ("seg_residual_update_stats", "seg_count_gt_strided", "seg_count_gt",
       "seg_compact_gt")),
+    ("3a", "3a rgc per leaf", {"fuse_leaves": False}, LEAF_KERNELS),
+    ("3b", "3b trimmed_topk per leaf",
+     {"optimizer": "trimmed_topk", "fuse_leaves": False}, LEAF_KERNELS),
 )
 
 
@@ -570,6 +782,7 @@ def phase_train(results: dict, profile: int) -> None:
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import common
     from repro_torch.kernels import segmented as kseg
     from repro_torch.launch.train import profile_steps
     from repro_torch.train.trainer import Trainer
@@ -593,8 +806,9 @@ def phase_train(results: dict, profile: int) -> None:
             rec.append((step, loss, now - last[0], counts))
             last[0], last[1] = now, dict(kseg.launches)
 
-        for k in kseg.launches:
-            kseg.launches[k] = 0
+        for counts in (kseg.launches, common.branches):
+            for k in counts:
+                counts[k] = 0
         last[0] = time.perf_counter()
         state = trainer.run(state, data, steps, log_every=0,
                             on_metrics=on_metrics)
@@ -605,7 +819,8 @@ def phase_train(results: dict, profile: int) -> None:
         med = statistics.median(dt for _, _, dt, _ in rec)
         print(f"[train] {label}: median step {med * 1e3:.2f} ms; launches "
               f"over {steps} steps "
-              f"{ {k: v for k, v in total.items() if v} }")
+              f"{ {k: v for k, v in total.items() if v} }; per-leaf branches "
+              f"{dict(common.branches)}")
         if not all(math.isfinite(loss) for _, loss, _, _ in rec):
             _fail(f"non-finite loss on path {label}")
         for name in needs:
@@ -650,7 +865,7 @@ def main(argv: list[str] | None = None) -> int:
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    logs = build.build(("segmented",))
+    logs = build.build(("segmented", "leaf"))
     print(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -660,13 +875,14 @@ def main(argv: list[str] | None = None) -> int:
     results: dict = {}
     phase_kernels(results)
     phase_sampled_kernels(results)
+    phase_leaf_kernels(results)
     phase_sync()
     phase_train(results, args.profile)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
         "seg_abs_sum_max_strided", "seg_count_gt_strided",
-        "seg_residual_update_stats")]}))
+        "seg_residual_update_stats", *LEAF_KERNELS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

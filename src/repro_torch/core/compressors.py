@@ -10,7 +10,11 @@ Port of ``src/repro/core/compressors.py``: ``dense``, ``trimmed_topk``,
 The reference's ``backend`` parameter ("jnp" | "pallas") is accepted
 and ignored: in the port the tensor's device picks the implementation
 (plain PyTorch on the CPU, the CUDA kernels on the card), and both
-compute what the reference's default ``jnp`` backend computes.
+compute what the reference's default ``jnp`` backend computes. Per leaf,
+``trimmed_topk`` and ``threshold_bsearch`` compress through the kernel
+compositions of ``kernels.ops`` on both devices (the kernels' plain
+twins on the CPU); ``sampled_bsearch`` through a one-slot arena on the
+card and ``selection.sampled_threshold_search`` on the CPU.
 """
 from __future__ import annotations
 
@@ -84,7 +88,8 @@ class TrimmedTopK(_Base):
         return k
 
     def compress(self, flat_v, k, state):
-        return sel_lib.trimmed_topk(flat_v, k, self.eps), state
+        from repro_torch.kernels import ops as kops
+        return kops.trimmed_topk(flat_v, k, eps=self.eps), state
 
     def segment_spec(self, geom, states):
         from repro_torch.kernels import segmented as kseg
@@ -109,13 +114,13 @@ class ThresholdBSearch(_Base):
 
     def compress(self, flat_v, k, state: LeafState
                  ) -> tuple[Selected, LeafState]:
+        from repro_torch.kernels import ops as kops
         if bool(state.interval % self.interval == 0):
-            s, thr = sel_lib.threshold_binary_search(
-                flat_v, k, self.eps,
+            s, thr = kops.threshold_binary_search(
+                flat_v, k, eps=self.eps,
                 warm=state.threshold if self.warm_start else None)
         else:
-            s = sel_lib.threshold_filter(flat_v, state.threshold,
-                                         capacity=2 * k)
+            s = kops.threshold_filter(flat_v, state.threshold, 2 * k)
             thr = state.threshold
         return s, state._replace(threshold=thr, interval=state.interval + 1)
 

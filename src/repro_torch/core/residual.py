@@ -44,7 +44,29 @@ def init_leaf(param: torch.Tensor, *, momentum: bool = True,
 
 def accumulate(grad, param, state: LeafState, *, momentum: float,
                nesterov: bool, weight_decay: float) -> LeafState:
-    """Alg 4 lines 8-19: weight decay, momentum correction, residual add."""
+    """Alg 4 lines 8-19: weight decay, momentum correction, residual add.
+
+    The case the reference's fused ``residual_update`` kernel computes —
+    momentum with a param-shaped velocity, f32 gradient and residual, no
+    weight decay — goes through that kernel's wrapper
+    (``kernels.residual_update``) on the flattened leaf: the CUDA kernel
+    on the card, its plain twin on the CPU, both with the separately
+    rounded arithmetic below. The other cases stay plain PyTorch on both
+    devices.
+    """
+    if (momentum and not weight_decay and state.momentum.dim() > 0
+            and grad.dtype == state.residual.dtype == state.momentum.dtype
+            == torch.float32):
+        from repro_torch.kernels.residual_update import residual_update
+
+        def flat(a):
+            return a.reshape(-1).contiguous()
+        u, v = residual_update(flat(grad), flat(state.momentum),
+                               flat(state.residual), momentum=momentum,
+                               nesterov=nesterov)
+        shape = state.residual.shape
+        return state._replace(residual=v.reshape(shape),
+                              momentum=u.reshape(shape))
     g = grad.to(torch.float32)
     if weight_decay:
         g = g + pinned_product(weight_decay, param.to(torch.float32))

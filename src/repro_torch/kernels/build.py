@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so``
 at the repository root, then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source is rebuilt and never loaded
-stale. Several sources compile in parallel (one ``nvcc`` each). Nothing
-here runs at import time; the CPU path never builds anything.
+source, the shared device headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and never loaded stale. Several
+sources compile in parallel (one ``nvcc`` each). Nothing here runs at
+import time; the CPU path never builds anything.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,105 @@
+"""Block-bucketed stream compaction of one leaf's survivors |x| > t.
+
+Port of ``src/repro/kernels/compact.py``. ``compact_gt`` takes a flat f32
+leaf, a threshold tensor on the same device and a bucket size ``cap``.
+Per 1024-element row it keeps the first ``cap`` survivors in index order
+as (value, global index), pads the bucket with ``(0.0, n)`` and reports
+the row's count before clamping, so the caller sees a bucket overflow.
+For a CPU tensor it runs the plain twin ``ref.compact_gt`` on the
+reference's zero-padded ``[nb, 1024]`` view; for a CUDA tensor it
+launches ``compact_gt_leaf`` (``csrc/leaf.cu``); anything else raises.
+
+``compact_gt_exact`` is its exact form, for a leaf whose buckets
+overflowed: given the row counts ``compact_gt`` returned, it writes the
+first ``capacity`` survivors of the whole leaf, in index order, to one
+dense list (``compact_gt_exact_leaf``; twin ``ref.compact_gt_exact``).
+The reference has no kernel for this and filters in ``jnp`` instead.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import ref
+from .common import (I, L, P, ROW, check_leaf, device_scalar, launches,
+                     raise_on, stream)
+
+
+@functools.cache
+def _fn():
+    from .build import load
+    fn = load("leaf").compact_gt_launch
+    fn.argtypes = [P, L, P, I, P, P, P, P]
+    fn.restype = I
+    return fn
+
+
+@functools.cache
+def _exact_fn():
+    from .build import load
+    fn = load("leaf").compact_gt_exact_launch
+    fn.argtypes = [P, L, P, P, P, I, P, P, P]
+    fn.restype = I
+    return fn
+
+
+def compact_gt(x: torch.Tensor, threshold: torch.Tensor, cap_per_block: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(values f32 [nb, cap], global indices i32 [nb, cap] padded with n,
+    pre-clamp counts i32 [nb]), ``nb = ceil(n / 1024)``."""
+    if x.device.type == "cpu":
+        return ref.compact_gt(ref.rows(x), threshold, cap_per_block,
+                              x.numel())
+    check_leaf(x, "compact_gt")
+    if not 1 <= cap_per_block <= ROW:
+        raise ValueError(f"compact_gt: cap {cap_per_block} not in "
+                         f"[1, {ROW}]")
+    thr = device_scalar(threshold, x, "compact_gt")
+    n = x.numel()
+    nb = -(-n // ROW)
+    vals = torch.empty((nb, cap_per_block), dtype=torch.float32,
+                       device=x.device)
+    idx = torch.empty((nb, cap_per_block), dtype=torch.int32,
+                      device=x.device)
+    cnt = torch.empty(nb, dtype=torch.int32, device=x.device)
+    rc = _fn()(x.data_ptr(), n, thr.data_ptr(), cap_per_block,
+               vals.data_ptr(), idx.data_ptr(), cnt.data_ptr(), stream())
+    raise_on(rc, "compact_gt")
+    launches["compact_gt"] += 1
+    return vals, idx, cnt
+
+
+def compact_gt_exact(x: torch.Tensor, threshold: torch.Tensor,
+                     counts: torch.Tensor, capacity: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values f32 [capacity], global indices i32 [capacity]): the first
+    ``capacity`` elements with |x| > threshold in index order, padded
+    with ``(0.0, n)``. ``counts`` are the pre-clamp row counts that
+    ``compact_gt`` returned for the same leaf and threshold; the kernel
+    places each row's survivors after those of the rows before it."""
+    if x.device.type == "cpu":
+        return ref.compact_gt_exact(ref.rows(x), threshold, capacity,
+                                    x.numel())
+    check_leaf(x, "compact_gt_exact")
+    n = x.numel()
+    nb = -(-n // ROW)
+    if not 1 <= capacity < 2**31:
+        raise ValueError(f"compact_gt_exact: capacity {capacity} not in "
+                         "[1, 2^31)")
+    if (counts.device != x.device or counts.dtype != torch.int32
+            or tuple(counts.shape) != (nb,)):
+        raise ValueError(f"compact_gt_exact: counts must be i32 [{nb}] on "
+                         f"{x.device}, got {counts.dtype} "
+                         f"{tuple(counts.shape)} on {counts.device}")
+    thr = device_scalar(threshold, x, "compact_gt_exact")
+    cnt = counts.contiguous()
+    incl = torch.cumsum(cnt, 0, dtype=torch.int32)
+    vals = torch.empty(capacity, dtype=torch.float32, device=x.device)
+    idx = torch.empty(capacity, dtype=torch.int32, device=x.device)
+    rc = _exact_fn()(x.data_ptr(), n, thr.data_ptr(), cnt.data_ptr(),
+                     incl.data_ptr(), capacity, vals.data_ptr(),
+                     idx.data_ptr(), stream())
+    raise_on(rc, "compact_gt_exact")
+    launches["compact_gt_exact"] += 1
+    return vals, idx

@@ -32,55 +32,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
-
-constexpr int ROW = 1024;             // arena row width (ARENA_BLOCK)
-constexpr int COLFOLD_THREADS = 256;
-constexpr int FINISH_THREADS = 1024;  // columns folded in phase 2
-
-__device__ __forceinline__ int bitrev(int j, int logr) {
-  return logr ? static_cast<int>(__brev(static_cast<unsigned>(j)) >> (32 - logr))
-              : 0;
-}
-
-// The halving fold (v[t] + v[t + R/2], then again ...) of one column of R =
-// 2^logr values equals the left-to-right pairwise sum of the column read in
-// bit-reversed row order. Rows are read in that order and merged on a
-// binary-counter stack, so a warp's loads of one row stay coalesced across
-// its 32 columns. load(t) returns row t's value; mx gets the column max.
-template <class Load>
-__device__ __forceinline__ void fold_column(int logr, Load load, float& sum,
-                                            float& mx) {
-  const int R = 1 << logr;
-  float stack[32];
-  int top = 0;
-  mx = 0.f;
-  if (R >= 8) {
-    // eight independent loads in flight, summed as the bottom three levels
-    for (int j0 = 0; j0 < R; j0 += 8) {
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        v[u] = load(bitrev(j0 + u, logr));
-        mx = fmaxf(mx, v[u]);
-      }
-      float a = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
-                          __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
-      for (unsigned m = static_cast<unsigned>(j0 >> 3); m & 1u; m >>= 1)
-        a = __fadd_rn(stack[--top], a);
-      stack[top++] = a;
-    }
-  } else {
-    for (int j = 0; j < R; ++j) {
-      float a = load(bitrev(j, logr));
-      mx = fmaxf(mx, a);
-      for (unsigned m = static_cast<unsigned>(j); m & 1u; m >>= 1)
-        a = __fadd_rn(stack[--top], a);
-      stack[top++] = a;
-    }
-  }
-  sum = stack[0];
-}
 
 // Phase 1 of seg_abs_sum_max. Segment s is the vector of its n sampled
 // elements, element e at slot position e * stride (stride 1: the whole slot;
@@ -113,43 +67,17 @@ stats_colfold(const float* __restrict__ x, const long long* __restrict__ seg_off
   part_max[static_cast<long long>(s) * cmax + i] = mx;
 }
 
-// Phase 2: the remaining logc levels fold segment s's C column partials by
-// halving — again as [R2, C2] column folds, then a shared-memory halving.
+// Phase 2: the remaining logc levels fold segment s's C column partials
+// (finish_partials, common.cuh).
 __global__ void __launch_bounds__(FINISH_THREADS)
 stats_finish(const int* __restrict__ seg_logc, int cmax,
              const float* __restrict__ part_sum,
              const float* __restrict__ part_max, float* __restrict__ out_sum,
              float* __restrict__ out_max) {
-  __shared__ float ssum[FINISH_THREADS];
-  __shared__ float smax[FINISH_THREADS];
   const int s = blockIdx.x;
-  const int i = threadIdx.x;
-  const int logc = seg_logc[s];
-  const int log2c = logc < 10 ? logc : 10;
-  const int C2 = 1 << log2c;
-  const int logr2 = logc - log2c;
-  const float* ps = part_sum + static_cast<long long>(s) * cmax;
-  const float* pm = part_max + static_cast<long long>(s) * cmax;
-  if (i < C2) {
-    float sum, unused;
-    fold_column(logr2, [&](int t) { return ps[t * C2 + i]; }, sum, unused);
-    float mx = 0.f;
-    for (int t = 0; t < (1 << logr2); ++t) mx = fmaxf(mx, pm[t * C2 + i]);
-    ssum[i] = sum;
-    smax[i] = mx;
-  }
-  __syncthreads();
-  for (int h = C2 >> 1; h >= 1; h >>= 1) {
-    if (i < h) {
-      ssum[i] = __fadd_rn(ssum[i], ssum[i + h]);
-      smax[i] = fmaxf(smax[i], smax[i + h]);
-    }
-    __syncthreads();
-  }
-  if (i == 0) {
-    out_sum[s] = ssum[0];
-    out_max[s] = smax[0];
-  }
+  finish_partials(seg_logc[s], part_sum + static_cast<long long>(s) * cmax,
+                  part_max + static_cast<long long>(s) * cmax, out_sum + s,
+                  out_max + s);
 }
 
 // One block per arena row: 256 threads x float4; the row's count goes to
@@ -313,33 +241,15 @@ compact_gt(const float* __restrict__ x, const int* __restrict__ block_seg,
            const int* __restrict__ block_base, const int* __restrict__ block_size,
            const float* __restrict__ thr, int cap, float* __restrict__ vals,
            int* __restrict__ idx, int* __restrict__ cnt) {
-  __shared__ int wpre[ROW / 32];
-  __shared__ int total_s;
   const int row = blockIdx.x;
   const int col = threadIdx.x;
-  const int lane = col & 31;
-  const int warp = col >> 5;
   const float t = thr[block_seg[row]];
   const int size = block_size[row];
   const int lidx = block_base[row] + col;
   const float v = x[static_cast<long long>(row) * ROW + col];
   const bool m = (fabsf(v) > t) && (lidx < size);
-  const unsigned bal = __ballot_sync(0xffffffffu, m);
-  if (lane == 0) wpre[warp] = __popc(bal);
-  __syncthreads();
-  if (warp == 0) {
-    const int own = wpre[lane];
-    int inc = own;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc += y;
-    }
-    wpre[lane] = inc - own;
-    if (lane == 31) total_s = inc;
-  }
-  __syncthreads();
-  const int pos = wpre[warp] + __popc(bal & ((1u << lane) - 1u));
-  const int total = total_s;
+  int total;
+  const int pos = row_rank(m, total);
   float* vr = vals + static_cast<long long>(row) * cap;
   int* ir = idx + static_cast<long long>(row) * cap;
   if (m && pos < cap) {

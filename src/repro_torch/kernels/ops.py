@@ -1,15 +1,51 @@
-"""Helpers of the selectors shared with ``multi_select``.
+"""The per-leaf selectors (Algorithms 2 and 3), composed from the
+per-leaf kernels.
 
-Port of ``_cap_for`` and ``_gather_topk_from_buckets`` from
-``src/repro/kernels/ops.py``. The per-leaf kernel compositions of that
-module (``trimmed_topk``, ``threshold_binary_search``, ...) wait with
-kernels 5-7 (see ROADMAP.md).
+Port of ``src/repro/kernels/ops.py``:
+
+    trimmed_topk            = abs_sum_max -> ratio ladder (count_gt)
+                              -> compact_gt -> top-k of the buckets
+    threshold_binary_search = abs_sum_max -> bisection (count_gt)
+                              -> count_gt + compact_gt -> first-2k gather
+    threshold_filter        = count_gt + compact_gt -> first-capacity gather
+
+When a row's survivors overflow its bucket, ``compact_gt_exact`` writes
+every survivor (the filter: the first ``capacity``) to one dense list in
+index order, from the row counts ``compact_gt`` returned, and the gather
+reads that list instead: the selection stays on the kernels. The one
+plain step is the short pick of a trimmed top-k whose ladder ran out
+with fewer than k survivors, which reads only the leaf's first k
+elements (``_short_pick``). ``common.branches`` counts both branches on
+either device.
+
+The kernel wrappers (``threshold_count``, ``block_stats``, ``compact``)
+pick the device: the CUDA kernel for a CUDA tensor, the plain twin for a
+CPU tensor, so the CPU runs the very composition the card runs. Every
+result is bitwise what the reference's default ``jnp`` selectors return
+(``selection.trimmed_topk``, ``threshold_binary_search``,
+``threshold_filter``), which the reference's Pallas compositions are not
+in two places (ROADMAP.md §3):
+
+* the statistics sum in ``pinned_sum`` order (``block_stats``);
+* ``trimmed_topk`` takes the compressor's ``eps``, and after a bucket
+  overflow or a short pick returns the exact top-k of the trimmed
+  scores (the rule ``multi_select`` follows); the reference's Pallas
+  composition falls back on overflow only, to an untrimmed exact top-k.
+
+The reference's ``ops.residual_update`` is ``residual_update.residual_update``
+on flat leaves, which ``residual.accumulate`` calls. The search loops are
+host loops: one ``.item()`` per iteration decides whether to go on.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.selection import first_true, stable_topk_indices
+from repro_torch.core.selection import (Selected, first_true, ladder_ratio,
+                                        mean_of_sum, search_band,
+                                        stable_topk_indices, threshold_at)
+
+from . import block_stats, compact, threshold_count
+from .common import branches
 
 DEFAULT_BLOCK = 1024
 
@@ -41,3 +77,108 @@ def _gather_topk_from_buckets(vals: torch.Tensor, idx: torch.Tensor, k: int,
     sel_idx = torch.where(ok, fi[pos], total)
     sel_val = torch.where(ok, fv[pos], torch.zeros_like(fv[pos]))
     return sel_idx.to(torch.int32), sel_val
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1).to(torch.float32).contiguous()
+
+
+def _nb(n: int) -> int:
+    return max(1, -(-n // DEFAULT_BLOCK))
+
+
+def stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean|x|, max|x|): the pinned sum times the f32 reciprocal of n."""
+    x = _flat(x)
+    s, m = block_stats.abs_sum_max(x)
+    return mean_of_sum(s, x.numel()), m
+
+
+def nnz_gt(x: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    return threshold_count.count_gt(_flat(x), threshold)
+
+
+def trimmed_topk(x: torch.Tensor, k: int, *, eps: float = 0.2) -> Selected:
+    """Algorithm 2 on the per-leaf kernels; capacity == k."""
+    x = _flat(x)
+    n = x.numel()
+    mean, mx = stats(x)
+    step = torch.tensor(1, dtype=torch.int32, device=x.device)
+    nnz = threshold_count.count_gt(
+        x, threshold_at(mean, mx, ladder_ratio(step, eps)))
+    while bool((nnz < k) & (ladder_ratio(step, eps) > 0.0)):
+        step = step + 1
+        nnz = threshold_count.count_gt(
+            x, threshold_at(mean, mx, ladder_ratio(step, eps)))
+    thr = threshold_at(mean, mx, ladder_ratio(step, eps))
+
+    cap = _cap_for(2 * k, _nb(n), DEFAULT_BLOCK)
+    vals, idx, counts = compact.compact_gt(x, thr, cap)
+    over, short = torch.stack(((counts > cap).any(), nnz < k)).tolist()
+    if over:
+        # every survivor, in index order (at least k slots, so a short
+        # pick still ranks all of them)
+        branches["exact_compaction"] += 1
+        vals, idx = compact.compact_gt_exact(x, thr, counts,
+                                             max(k, int(counts.sum())))
+    si, sv = _gather_topk_from_buckets(vals, idx, k, n,
+                                       order_by_magnitude=True)
+    if short:
+        branches["short_pick"] += 1
+        si, sv = _short_pick(x, thr, si, sv, k)
+    return Selected(si, sv, torch.tensor(k, dtype=torch.int32,
+                                         device=x.device))
+
+
+def _short_pick(x: torch.Tensor, thr: torch.Tensor, si: torch.Tensor,
+                sv: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fewer than k survivors: the exact top-k of the trimmed scores
+    (``where(|x| > thr, |x|, 0)``, ties lowest index first) is the P
+    survivors of score > 0, ranked (the head of ``si``), then the first
+    k - P elements of score 0 in index order. P <= nnz < k, so those lie
+    in x[:k]: only that prefix is read."""
+    n = x.numel()
+    ah = x[:k].abs()
+    zero = first_true(~((ah > thr) & (ah > 0)), k, n)
+    p = ((si < n) & (sv != 0)).sum()
+    j = torch.arange(k, device=x.device)
+    pick = torch.where(j < p, si.to(torch.int64), zero[(j - p).clamp(min=0)])
+    return pick.to(torch.int32), x[pick]
+
+
+def threshold_binary_search(x: torch.Tensor, k: int, *, eps: float = 1e-3,
+                            warm: torch.Tensor | None = None
+                            ) -> tuple[Selected, torch.Tensor]:
+    """Algorithm 3 on the per-leaf kernels; capacity == 2k. ``warm`` seeds
+    the bracket from the previous threshold (``selection.search_band``);
+    ``None`` is the cold search. Returns (selection, threshold)."""
+    x = _flat(x)
+    mean, mx = stats(x)
+    thr = search_band(lambda t: threshold_count.count_gt(x, t), mean, mx, k,
+                      eps, warm)
+    return _filter(x, thr, 2 * k), thr
+
+
+def threshold_filter(x: torch.Tensor, threshold: torch.Tensor,
+                     capacity: int) -> Selected:
+    """First-``capacity`` |x| > threshold filter on the per-leaf kernels
+    (the §5.2.2 reuse step), with ``selection.threshold_filter``'s
+    overflow semantics and count header."""
+    return _filter(_flat(x), threshold, capacity)
+
+
+def _filter(x: torch.Tensor, thr: torch.Tensor, capacity: int) -> Selected:
+    """count -> compact -> first-``capacity`` gather; after a bucket
+    overflow, the first ``capacity`` survivors from the exact form."""
+    n = x.numel()
+    nnz = threshold_count.count_gt(x, thr)
+    cap = _cap_for(capacity, _nb(n), DEFAULT_BLOCK)
+    vals, idx, counts = compact.compact_gt(x, thr, cap)
+    if bool((counts > cap).any()):
+        branches["exact_compaction"] += 1
+        sv, si = compact.compact_gt_exact(x, thr, counts, capacity)
+    else:
+        si, sv = _gather_topk_from_buckets(vals, idx, capacity, n,
+                                           order_by_magnitude=False)
+    return Selected(si, sv, torch.clamp(nnz, max=capacity).to(torch.int32),
+                    nnz > capacity)

@@ -1,22 +1,32 @@
-"""Plain PyTorch twins of the segmented kernels.
+"""Plain PyTorch twins of the hand-written kernels.
 
-Port of the segmented half of ``src/repro/kernels/ref.py``. Each twin
-computes exactly what the reference's ``jnp`` twin computes and is the
-oracle its CUDA kernel (``kernels/csrc/segmented.cu``) is held against:
-``seg_abs_sum_max`` bitwise (the pinned summation tree), the integer
-counts and the compaction exactly, and ``seg_residual_update_stats``
-bitwise (the separately rounded products of ``accumulate_arena``). The
-wrappers in ``kernels/segmented.py`` run these for CPU tensors; they also
-run on CUDA tensors when called directly, which is how the card compares
-kernel and twin.
+Port of ``src/repro/kernels/ref.py``. Each twin is the oracle its CUDA
+kernel is held against on the card, and what the kernel's wrapper runs
+for a CPU tensor; the twins also run on CUDA tensors when called
+directly, which is how the card compares kernel and twin.
+
+* Segmented twins (kernels of ``kernels/csrc/segmented.cu``, wrappers in
+  ``kernels/segmented.py``): ``seg_abs_sum_max`` bitwise (the pinned
+  summation tree), the integer counts and the compaction exactly, and
+  ``seg_residual_update_stats`` bitwise (the separately rounded products
+  of ``accumulate_arena``). Each computes what the reference's ``jnp``
+  twin computes.
+* Per-leaf twins (kernels of ``kernels/csrc/leaf.cu``, wrappers in
+  ``threshold_count.py``, ``block_stats.py``, ``compact.py`` and
+  ``residual_update.py``): ``count_gt``, ``abs_sum_max``, ``compact_gt``
+  and ``residual_update``, on the reference's zero-padded ``[nb, 1024]``
+  view of a flat leaf (``rows``); each docstring says where it departs
+  from ``repro.kernels.ref``. ``compact_gt_exact`` is the twin of
+  ``compact_gt``'s exact form, which the reference lacks.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.residual import accumulate_arena
-from repro_torch.core.selection import pinned_sum
+from repro_torch.core.residual import accumulate_arena, pinned_product
+from repro_torch.core.selection import first_true, pinned_sum
 
 
 def _seg_rows(block_seg) -> list[tuple[int, int]]:
@@ -127,3 +137,85 @@ def seg_residual_update_stats(g2d, v2d, u2d, p2d, geom, *, momentum: float,
     sums, maxs = seg_abs_sum_max(v, geom.block_seg, geom.block_size,
                                  geom.n_seg, stride_seg)
     return v, u, sums, maxs
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf twins (the whole-leaf kernels of kernels/csrc/leaf.cu)
+# ---------------------------------------------------------------------------
+
+def rows(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """A flat leaf as the reference's zero-padded f32 ``[nb, block]`` view
+    (``repro.kernels.ops._to2d``), ``nb = max(1, ceil(n / block))``."""
+    flat = x.reshape(-1).to(torch.float32)
+    nb = max(1, -(-flat.numel() // block))
+    return F.pad(flat, (0, nb * block - flat.numel())).reshape(nb, block)
+
+
+def count_gt(x2d: torch.Tensor, threshold: torch.Tensor) -> torch.Tensor:
+    """nnz(|x| > threshold) over the padded view, as i32 (order-free).
+    The padding counts only when ``0 > threshold``, as in the reference."""
+    return (x2d.to(torch.float32).abs() > threshold).sum().to(torch.int32)
+
+
+def abs_sum_max(x2d: torch.Tensor, n: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum|x|, max|x|) of the leaf's first ``n`` elements.
+
+    The reference's twin sums with ``jnp.sum`` and its Pallas kernel adds
+    the rows' sums in sequence; this twin takes ``pinned_sum`` of the
+    true-length vector instead, the order of the reference's default
+    ``jnp`` selectors (``selection._stats``) and of the arena statistics
+    (``seg_abs_sum_max``), so per-leaf and arena thresholds stay bitwise
+    equal. The max (order-free) covers the zero padding, which cannot
+    raise it."""
+    ax = x2d.to(torch.float32).abs()
+    return pinned_sum(ax.reshape(-1)[:n]), ax.max()
+
+
+def compact_gt(x2d: torch.Tensor, threshold: torch.Tensor, cap_per_block: int,
+               n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per row, the first ``cap_per_block`` elements with |x| > threshold
+    and global index < ``n``, packed to the front: (values [nb, cap],
+    global i32 indices [nb, cap] padded with ``(0.0, n)``, pre-clamp
+    counts [nb]). As ``repro.kernels.ref.compact_gt``; computed as the
+    one-slot case of ``seg_compact_gt`` (slot-local index = global)."""
+    nb, block = x2d.shape
+    return seg_compact_gt(x2d, np.zeros(nb, np.int32),
+                          np.arange(nb, dtype=np.int64) * block,
+                          np.full(nb, n, np.int64),
+                          threshold.reshape(1), cap_per_block)
+
+
+def compact_gt_exact(x2d: torch.Tensor, threshold: torch.Tensor,
+                     capacity: int, n: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first ``capacity`` elements with |x| > threshold and global
+    index < ``n``, in index order, padded with ``(0.0, n)``: (values f32
+    [capacity], global i32 indices [capacity]). This is what
+    ``repro.core.selection.threshold_filter`` selects
+    (``jnp.nonzero(mask, size=capacity, fill_value=n)``); the reference
+    has no kernel for it and falls back to that function after a bucket
+    overflow."""
+    flat = x2d.reshape(-1)[:n].to(torch.float32)
+    idx = first_true(flat.abs() > threshold, capacity, n)
+    vals = torch.where(idx < n, flat[idx.clamp(max=n - 1)],
+                       torch.zeros((), dtype=torch.float32, device=flat.device))
+    return vals, idx.to(torch.int32)
+
+
+def residual_update(grad: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                    momentum: float, nesterov: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg 4 lines 11-19: ``U' = m * U + g``, ``V' = V + U'`` (``+ g``
+    with nesterov). Returns (U', V').
+
+    Departs from ``repro.kernels.ref.residual_update``, whose ``m * U + g``
+    is not pinned (XLA may contract it into one FMA): this twin rounds the
+    product on its own, as ``residual.accumulate`` does, so it is bitwise
+    that function."""
+    g = grad.to(torch.float32)
+    u_new = pinned_product(momentum, u) + g
+    v_new = v + u_new
+    if nesterov:
+        v_new = v_new + g
+    return u_new, v_new

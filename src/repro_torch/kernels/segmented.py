@@ -19,8 +19,9 @@ statistics, threshold and bucket capacity:
 
 Each wrapper takes the plain twin (``kernels.ref``) for a CPU tensor and
 launches its hand-written CUDA kernel (``csrc/segmented.cu``) for a CUDA
-tensor; anything else raises. ``launches`` counts kernel launches per
-wrapper and form (one per call on the card; the CPU path counts nothing).
+tensor; anything else raises. ``launches`` (``kernels.common``) counts
+kernel launches per wrapper and form (one per call on the card; the CPU
+path counts nothing).
 
 ``multi_select`` runs Algorithms 2 and 3 across every slot of every arena
 with one count launch per search iteration; sampled slots (a stride > 1
@@ -45,30 +46,18 @@ from repro_torch.core.selection import (Selected, _pad_topk, bisect_midpoint,
                                         threshold_filter, warm_ratio)
 
 from . import ref
+from .common import F as _F, I as _I, LOG_COLS, P as _P, ROW, launches
+from .common import raise_on as _raise_on, stream as _stream
 from .ops import _cap_for, _gather_topk_from_buckets
 
 __all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
            "seg_residual_update_stats", "seg_stats", "seg_mean",
            "SegmentSpec", "multi_select", "launches"]
 
-ROW = 1024                       # arena row width the kernels are built for
-LOG_COLS = 16                    # seg_abs_sum_max phase-1 columns: <= 2^16
-
-# Kernel launches per wrapper and form since the last reset (plain ints;
-# chip_smoke zeroes them before each path it drives and reads them after).
-launches = {"seg_abs_sum_max": 0, "seg_count_gt": 0, "seg_compact_gt": 0,
-            "seg_abs_sum_max_strided": 0, "seg_count_gt_strided": 0,
-            "seg_residual_update_stats": 0}
-
 
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -158,15 +147,6 @@ def _check_launch(x2d: torch.Tensor, geom, name: str) -> None:
             f"{tuple(x2d.shape)}")
     if geom.n_seg > 65535:
         raise ValueError(f"{name}: at most 65535 segments per launch")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
 def seg_abs_sum_max(x2d: torch.Tensor, geom, stride_seg=None

@@ -8,6 +8,9 @@ Runs the paper's LSTM LM with RGC on one device, CUDA by default:
       --smoke --steps 6 --batch 2 --seq 16 --density 0.02 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35 --optimizer sampled_bsearch
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 20 --batch 20 --seq 35 --no-fuse-leaves \
+      [--optimizer trimmed_topk]
 
 ``--profile N`` trains N more steps under ``torch.profiler`` and prints
 the device time by kernel and the device's busy share of those steps.
@@ -29,6 +32,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--optimizer", default="rgc",
                     help="rgc | dense | a registered compressor spec, "
                     "e.g. threshold_bsearch")
+    ap.add_argument("--no-fuse-leaves", action="store_true",
+                    help="disable the flat residual arenas (per-leaf "
+                    "mask/select/pack baseline)")
     ap.add_argument("--density", type=float, default=0.01)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
@@ -46,12 +52,14 @@ def main(argv: list[str] | None = None) -> None:
 
     cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
     tc = TrainConfig(lr=args.lr, optimizer=args.optimizer,
-                     density=args.density)
+                     density=args.density,
+                     fuse_leaves=not args.no_fuse_leaves)
     trainer = Trainer(cfg, tc, device=args.device)
     state = trainer.init_state()
     n = sum(p.numel() for p in trainer.model.parameters())
     print(f"arch={cfg.name} params={n:,} optimizer={args.optimizer} "
-          f"density={args.density} device={trainer.device}")
+          f"density={args.density} fuse_leaves={tc.fuse_leaves} "
+          f"device={trainer.device}")
     batches = bigram_batches(cfg.vocab_size, args.batch, args.seq,
                              seed=tc.seed)
     state = trainer.run(state, batches, args.steps,

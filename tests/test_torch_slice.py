@@ -1,6 +1,7 @@
 """Port parity for the slice as a whole: the smoke ``paper-lstm`` model,
-the data streams, three RGC trainer steps, the spec grammar, and the
-port's import and device rules."""
+the data streams, three RGC trainer steps on each path (default, 2b, and
+the per-leaf paths 3a and 3b), the launcher's flags, the spec grammar,
+and the port's import and device rules."""
 import ast
 import os
 
@@ -106,6 +107,44 @@ def test_trainer_sampled_fused_steps_match_reference():
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(fuse_leaves=False),
+    dict(optimizer="trimmed_topk", fuse_leaves=False),
+], ids=["3a", "3b"])
+def test_trainer_per_leaf_steps_match_reference(kw):
+    """Three steps of paths 3a (``rgc`` per leaf: Alg 3 on the matrices,
+    dense biases) and 3b (``trimmed_topk`` per leaf on every leaf) at
+    smoke width, through the per-leaf kernel compositions' twins."""
+    pytest.importorskip("torch")
+    got, want = _trainer_losses(dict(lr=0.2, density=0.01, **kw))
+    assert len(got) == 3 and all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_launcher_no_fuse_leaves_flag(monkeypatch):
+    """``--no-fuse-leaves`` reaches the trainer as
+    ``TrainConfig(fuse_leaves=False)``, as in the JAX launcher."""
+    pytest.importorskip("torch")
+    from repro_torch.launch import train as launch
+    from repro_torch.train import trainer
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake(cfg, tc, device=None):
+        seen.append(tc)
+        raise Stop
+    monkeypatch.setattr(trainer, "Trainer", fake)
+    for flags, fuse in (([], True), (["--no-fuse-leaves"], False)):
+        with pytest.raises(Stop):
+            launch.main(["--arch", "paper-lstm", "--smoke", "--device", "cpu",
+                         "--optimizer", "trimmed_topk", *flags])
+        assert seen[-1].fuse_leaves is fuse
+        assert seen[-1].optimizer == "trimmed_topk"
+
+
 @pytest.mark.parametrize("spec", [
     "rgc", "threshold_bsearch", "momentum", "momentum+clip(threshold_bsearch)",
     "momentum+clip+threshold_bsearch", "warmup(rgc)", "masking+momentum(rgc)",
@@ -185,3 +224,20 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="no kernel"):
         kseg.seg_residual_update_stats(x, x, None, None, g, momentum=0.0,
                                        nesterov=False, stride_seg=(4,))
+    # the per-leaf wrappers
+    from repro_torch.kernels import (block_stats, compact, residual_update,
+                                     threshold_count)
+    leaf, t = torch.empty(3000, device="meta"), torch.zeros((), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        threshold_count.count_gt(leaf, t)
+    with pytest.raises(ValueError, match="no kernel"):
+        block_stats.abs_sum_max(leaf)
+    with pytest.raises(ValueError, match="no kernel"):
+        compact.compact_gt(leaf, t, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        compact.compact_gt_exact(leaf, t,
+                                 torch.zeros(3, dtype=torch.int32,
+                                             device="meta"), 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        residual_update.residual_update(leaf, leaf, leaf, momentum=0.9,
+                                        nesterov=False)

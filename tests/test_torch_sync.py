@@ -76,6 +76,8 @@ def _bits(a):
     ("threshold_bsearch", True, 0.01),
     ("threshold_bsearch", False, 0.01),
     ("rgc", True, 1.0),
+    ("trimmed_topk", False, 0.01),
+    ("trimmed_topk", True, 0.01),
 ])
 def test_gradient_sync_update_matches_reference(optimizer, fuse, density):
     torch = pytest.importorskip("torch")
