@@ -27,24 +27,31 @@ the JAX package. Phases, each fatal on failure:
    full-width leaves (15M and 9M elements, a threshold that overflows the
    16-wide buckets in 100 rows, and threshold 0), on tied leaves of 1 to
    70,000 elements and on a misaligned view, every output bitwise;
-   abs_sum_max is also timed against torch.linalg.vector_norm as a
-   yardstick;
+   compact_gt_exact and abs_sum_max also on two slots of the full-width
+   arena (the views multi_select gives them). abs_sum_max is timed
+   against torch.linalg.vector_norm as a yardstick, compact_gt_exact both
+   writing every survivor (the trimmed top-k) and the first 2k at the
+   bisection's threshold (the filter), at both leaf sizes;
 4. two full-width ``GradientSync.update`` steps (refresh, then threshold
    reuse) with the kernels, and again with the twins on the same CUDA
-   tensors, for ``rgc`` (arena, and per leaf: 3a), ``trimmed_topk`` per
-   leaf (3b) and ``sampled_bsearch`` with ``fuse_accumulate`` off and
-   on: params, residual, momentum, thresholds and packed messages
-   bitwise equal; sampled fused equal to sampled per-leaf accumulation;
-   and after one update, per leaf (3a) equal to arena (default);
+   tensors, for ``rgc`` (arena, and per leaf: 3a), ``trimmed_topk``
+   (arena, and per leaf: 3b) and ``sampled_bsearch`` with
+   ``fuse_accumulate`` off and on: params, residual, momentum, thresholds
+   and packed messages bitwise equal; sampled fused equal to sampled
+   per-leaf accumulation; and after one update, per leaf (3a) equal to
+   arena (default);
 5. five paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
    8 steps each of a seeded synthetic stream (batch 20 x seq 35): the
    default (``rgc``), 2a (``optimizer="sampled_bsearch"``), 2b (the
    same with ``fuse_accumulate=True``), 3a (``fuse_leaves=False``) and
    3b (``optimizer="trimmed_topk", fuse_leaves=False``). Kernel launch
-   counts and the per-leaf selectors' branch counts (exact compaction
-   after a bucket overflow, short pick) are zeroed just before each path
-   and read just after; every loss must be finite, each path must launch the
-   kernels it names, and every kernel must be launched on some path;
+   counts and the selectors' branch counts (exact compaction after a
+   bucket overflow, short pick; arena and per leaf) are zeroed just before
+   each path and read just after; every loss must be finite, each path
+   must launch the kernels it names, a path whose buckets overflowed must
+   have run the exact compaction, no plain whole-leaf or whole-slot
+   filter or sort may run on the card, and every kernel must be launched
+   on some path;
    with ``--profile N``, N more steps of each path under
    ``torch.profiler`` print its device time by kernel;
 6. a JSON line per kernel (time, bound, launches on each path, error),
@@ -462,7 +469,7 @@ def _leaf_twins() -> dict:
         "abs_sum_max": lambda x: ref.abs_sum_max(ref.rows(x), x.numel()),
         "compact_gt": lambda x, t, cap: ref.compact_gt(ref.rows(x), t, cap,
                                                        x.numel()),
-        "compact_gt_exact": lambda x, t, counts, capacity:
+        "compact_gt_exact": lambda x, t, capacity:
             ref.compact_gt_exact(ref.rows(x), t, capacity, x.numel()),
         "residual_update": ref.residual_update}
 
@@ -480,10 +487,13 @@ def _full_width_leaf(n: int, gen):
 def phase_leaf_kernels(results: dict) -> None:
     """The per-leaf kernels against their twins, bitwise, on the
     full-width leaves (15M and 9M elements), on ragged tied leaves and on
-    a misaligned view; then their times at full width."""
+    a misaligned view, and the exact compaction and the statistics also on
+    slots of the full-width arena (the views ``multi_select`` gives them
+    after a bucket overflow); then their times at full width."""
     import torch
-    from repro_torch.kernels import (block_stats, compact, residual_update,
-                                     threshold_count)
+    from repro_torch.kernels import (block_stats, compact, ops,
+                                     residual_update, threshold_count)
+    from repro_torch.kernels import segmented as kseg
     from repro_torch.kernels.ops import _cap_for
 
     dev = torch.device("cuda")
@@ -524,8 +534,8 @@ def phase_leaf_kernels(results: dict) -> None:
             # survivor, and the whole leaf (padding after the survivors)
             for capacity in sorted({1, min(n, msg), min(n, int(kc)) or 1,
                                     n}):
-                ke = compact.compact_gt_exact(x, t, kb[2], capacity)
-                pe = twin["compact_gt_exact"](x, t, kb[2], capacity)
+                ke = compact.compact_gt_exact(x, t, capacity)
+                pe = twin["compact_gt_exact"](x, t, capacity)
                 ok["compact_gt_exact"] &= all(same_bits(a, b)
                                               for a, b in zip(ke, pe))
                 err["compact_gt_exact"] = max(
@@ -554,17 +564,45 @@ def phase_leaf_kernels(results: dict) -> None:
         if not all(ok.values()):
             _fail(f"a per-leaf kernel differs from its twin on {label}")
 
+    # the exact form and the statistics on slot views of the full-width
+    # arena (offsets 14,649 and 46,875 rows), as multi_select runs them
+    group = full_width_group()
+    arena = _arena_of(group, gen)
+    for s in (1, 5):
+        x = kseg._slot_flat(arena, group.geometry, s)
+        n, k = x.numel(), group.geometry.seg_ks[s]
+        ok = all(same_bits(a, b) for a, b in zip(block_stats.abs_sum_max(x),
+                                                 twin["abs_sum_max"](x)))
+        for thr in (3.0, 0.0):
+            t = torch.tensor(thr, device=dev)
+            alive = int(threshold_count.count_gt(x, t))
+            for capacity in sorted({1, 2 * k, alive or 1, n}):
+                ke = compact.compact_gt_exact(x, t, capacity)
+                pe = twin["compact_gt_exact"](x, t, capacity)
+                ok &= all(same_bits(a, b) for a, b in zip(ke, pe))
+                err["compact_gt_exact"] = max(
+                    err["compact_gt_exact"],
+                    *(max_err(a, b) for a, b in zip(ke, pe)))
+        torch.cuda.synchronize()
+        print(f"[leaf] arena slot {s} ({group.slots[s].leaf}, n={n:,}, "
+              f"offset {x.data_ptr() - arena.data_ptr():,} bytes): "
+              f"compact_gt_exact and abs_sum_max "
+              f"{'equal' if ok else 'DIFFER'}")
+        if not ok:
+            _fail(f"a per-leaf kernel differs from its twin on arena slot {s}")
+    del arena, x, ke, pe
+
     # timing at the shapes the per-leaf paths give the kernels
     for n, x in full.items():
         t = torch.tensor(3.0, device=dev)
         cap = _cap_for(2 * math.ceil(0.001 * n), -(-n // 1024), 1024)
         nb = -(-n // 1024)
+        tiles = -(-n // compact.EXACT_TILE)
         g = torch.randn(n, generator=gen, device=dev) * 1e-3
         u = torch.randn(n, generator=gen, device=dev) * 1e-2
         kw = dict(momentum=0.9, nesterov=False)
-        counts = compact.compact_gt(x, t, cap)[2]
         # the exact form as the trimmed top-k runs it: every survivor
-        alive = int(counts.sum())
+        alive = int(threshold_count.count_gt(x, t))
         print(f"[leaf] compact_gt_exact n={n:,}: {alive:,} survivors of "
               f"threshold 3, all written")
         timing = {
@@ -578,21 +616,53 @@ def phase_leaf_kernels(results: dict) -> None:
                            lambda: twin["compact_gt"](x, t, cap),
                            4 * n + 4 + nb * cap * 8 + nb * 4, 3 * n, None),
             "compact_gt_exact": (
-                lambda: compact.compact_gt_exact(x, t, counts, alive),
-                lambda: twin["compact_gt_exact"](x, t, counts, alive),
-                4 * n + 4 + nb * 4 + alive * 8, 3 * n, None),
+                lambda: compact.compact_gt_exact(x, t, alive),
+                lambda: twin["compact_gt_exact"](x, t, alive),
+                4 * n + 4 + alive * 8 + (tiles + 1) * 8, 3 * n, None),
             "residual_update": (
                 lambda: residual_update.residual_update(g, u, x, **kw),
                 lambda: twin["residual_update"](g, u, x, **kw),
                 5 * 4 * n, 3 * n, None),
         }
-        for name, (kern, plain, nbytes, ops, lib) in timing.items():
-            row = time_kernel(f"{name} n={n:,}", kern, plain, nbytes, ops,
+        for name, (kern, plain, nbytes, n_ops, lib) in timing.items():
+            row = time_kernel(f"{name} n={n:,}", kern, plain, nbytes, n_ops,
                               source="leaf.cu", library=lib)
             if n == 15_000_000:
                 row.update(name=name, replaces=LEAF_REPLACES[name],
                            max_abs_err=err[name])
                 results[name] = row
+        # abs_sum_max at other column splits than block_stats.split's 2^13:
+        # the same bits, other launch shapes (2^(logm - 5) blocks)
+        want = twin["abs_sum_max"](x)
+        logp = block_stats.split(n)[0]
+        for logm in (11, 12, 13):
+            part = block_stats.scratch(logm, dev)
+            out = torch.empty(2, device=dev)
+
+            def at_split(logm=logm, part=part, out=out):
+                rc = block_stats._fn()(x.data_ptr(), n, 1, logp, logm,
+                                       part.data_ptr(), out.data_ptr(),
+                                       kseg._stream())
+                kseg._raise_on(rc, f"abs_sum_max at 2^{logm} columns")
+            at_split()
+            same = all(same_bits(a, b) for a, b in zip(out, want))
+            ms = graph_ms(at_split, 20)
+            print(f"[leaf] abs_sum_max n={n:,} at 2^{logm} columns "
+                  f"({1 << (logm - 5)} blocks): {ms:.4f} ms, "
+                  f"{'equal' if same else 'DIFFERS'}")
+            if not same:
+                _fail(f"abs_sum_max at 2^{logm} columns differs from its twin")
+        # the exact form as the filter runs it: the first 2k survivors at
+        # the threshold the bisection finds on this leaf
+        k = math.ceil(0.001 * n)
+        t_f = ops.threshold_binary_search(x, k)[1]
+        alive = int(threshold_count.count_gt(x, t_f))
+        time_kernel(f"compact_gt_exact n={n:,} capacity 2k={2 * k:,} "
+                    f"({alive:,} survivors)",
+                    lambda: compact.compact_gt_exact(x, t_f, 2 * k),
+                    lambda: twin["compact_gt_exact"](x, t_f, 2 * k),
+                    4 * n + 4 + 2 * k * 8 + (tiles + 1) * 8, 3 * n,
+                    source="leaf.cu")
         del g, u
     print("[leaf] library_ms: abs_sum_max against torch.linalg.vector_norm"
           "(x, 1), which sums in its own order (a yardstick only); no one "
@@ -649,8 +719,8 @@ def _twins_patched():
 
 def phase_sync() -> None:
     """Two full-width updates with kernels vs with the twins patched in,
-    for rgc (arena, and per leaf: 3a), trimmed_topk per leaf (3b) and
-    sampled_bsearch with per-leaf and fused accumulation; then sampled
+    for rgc (arena, and per leaf: 3a), trimmed_topk (arena, and per leaf:
+    3b) and sampled_bsearch with per-leaf and fused accumulation; then sampled
     fused vs sampled per-leaf accumulation, and the state after one
     per-leaf update (3a) vs after one arena update (default)."""
     import torch
@@ -710,7 +780,8 @@ def phase_sync() -> None:
 
     kept = {}
     for optimizer, fuse_leaves, fuse in (
-            ("rgc", True, False), ("sampled_bsearch", True, False),
+            ("rgc", True, False), ("trimmed_topk", True, False),
+            ("sampled_bsearch", True, False),
             ("sampled_bsearch", True, True), ("rgc", False, False),
             ("trimmed_topk", False, False)):
         label = (f"{optimizer} fuse_leaves={fuse_leaves} "
@@ -777,6 +848,49 @@ PATHS = (
 )
 
 
+def _selection_spies(buckets: list, plain: dict):
+    """A context that records what the selectors do on the card: every
+    bucketed compaction's (row counts, bucket size) into ``buckets``, and
+    into ``plain`` each call of the plain whole-vector selections
+    (``selection.threshold_filter``, ``selection._pad_topk``) on a CUDA
+    tensor. A row over the largest bucket of a ``seg_compact_gt`` launch
+    overflows its slot's bucket, so the count is a lower bound there."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.core import selection
+    from repro_torch.kernels import compact, ops
+    from repro_torch.kernels import segmented as kseg
+
+    def spy_compact(fn):
+        def spy(*args):
+            out = fn(*args)
+            buckets.append((out[2], args[-1]))
+            return out
+        return spy
+
+    def spy_plain(name, fn):
+        def spy(x, *args, **kw):
+            if x.device.type == "cuda":
+                plain[name] = plain.get(name, 0) + 1
+            return fn(x, *args, **kw)
+        return spy
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_compact_gt", spy_compact(kseg.seg_compact_gt)))
+    stack.enter_context(mock.patch.object(
+        compact, "compact_gt", spy_compact(compact.compact_gt)))
+    for name in ("threshold_filter", "_pad_topk"):
+        plain_fn = getattr(selection, name)
+        # the modules that hold the plain function itself (ops has its own
+        # threshold_filter: the composition of the kernels)
+        for mod in (selection, kseg, ops):
+            if getattr(mod, name, None) is plain_fn:
+                stack.enter_context(mock.patch.object(
+                    mod, name, spy_plain(name, plain_fn)))
+    return stack
+
+
 def phase_train(results: dict, profile: int) -> None:
     import torch
     from repro_torch.configs import paper_lstm
@@ -809,20 +923,31 @@ def phase_train(results: dict, profile: int) -> None:
         for counts in (kseg.launches, common.branches):
             for k in counts:
                 counts[k] = 0
+        buckets, plain = [], {}
         last[0] = time.perf_counter()
-        state = trainer.run(state, data, steps, log_every=0,
-                            on_metrics=on_metrics)
+        with _selection_spies(buckets, plain):
+            state = trainer.run(state, data, steps, log_every=0,
+                                on_metrics=on_metrics)
         total = dict(kseg.launches)
         for step, loss, dt, counts in rec:
             print(f"[train] {label}: step {step} loss {loss:.6f} time "
                   f"{dt * 1e3:.2f} ms launches {counts}")
         med = statistics.median(dt for _, _, dt, _ in rec)
+        over = sum(bool((cnt > cap).any()) for cnt, cap in buckets)
         print(f"[train] {label}: median step {med * 1e3:.2f} ms; launches "
               f"over {steps} steps "
-              f"{ {k: v for k, v in total.items() if v} }; per-leaf branches "
-              f"{dict(common.branches)}")
+              f"{ {k: v for k, v in total.items() if v} }; branches "
+              f"{dict(common.branches)}; bucketed compactions with a row "
+              f"over its bucket {over} of {len(buckets)}; whole-leaf or "
+              f"whole-slot plain selections on the card {plain}")
         if not all(math.isfinite(loss) for _, loss, _, _ in rec):
             _fail(f"non-finite loss on path {label}")
+        if over and not common.branches["exact_compaction"]:
+            _fail(f"buckets overflowed on path {label} and no exact "
+                  f"compaction ran")
+        if any(plain.values()):
+            _fail(f"a plain whole-leaf selection ran on the card on path "
+                  f"{label}: {plain}")
         for name in needs:
             if total[name] <= 0:
                 _fail(f"{name} was not launched on path {label}")

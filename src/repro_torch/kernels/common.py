@@ -4,10 +4,11 @@ argument types, PyTorch's current stream and the launch check.
 ``launches`` counts kernel launches per wrapper and form since the last
 reset (plain ints, one per call on the card; the CPU path counts
 nothing). ``branches`` counts, on either device, the data-dependent
-branches the per-leaf selectors (``kernels.ops``) take: the exact
-compaction after a bucket overflow, and the short pick of a trimmed
-top-k with fewer than k survivors. ``chip_smoke.py`` zeroes both before
-each path it drives and reads them after.
+branches the selectors take, per leaf (``kernels.ops``) and per arena
+slot (``segmented.multi_select``): the exact compaction after a bucket
+overflow, and the short pick of a trimmed top-k with fewer than k
+survivors. ``chip_smoke.py`` zeroes both before each path it drives and
+reads them after.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import ctypes
 import torch
 
 ROW = 1024          # row width the kernels are built for (csrc/common.cuh)
-LOG_COLS = 16       # pinned statistics, phase 1: at most 2^16 columns
+LOG_COLS = 16       # arena statistics, phase 1: at most 2^16 columns
 
 launches = {"seg_abs_sum_max": 0, "seg_count_gt": 0, "seg_compact_gt": 0,
             "seg_abs_sum_max_strided": 0, "seg_count_gt_strided": 0,

@@ -10,10 +10,11 @@ reference's zero-padded ``[nb, 1024]`` view; for a CUDA tensor it
 launches ``compact_gt_leaf`` (``csrc/leaf.cu``); anything else raises.
 
 ``compact_gt_exact`` is its exact form, for a leaf whose buckets
-overflowed: given the row counts ``compact_gt`` returned, it writes the
-first ``capacity`` survivors of the whole leaf, in index order, to one
-dense list (``compact_gt_exact_leaf``; twin ``ref.compact_gt_exact``).
-The reference has no kernel for this and filters in ``jnp`` instead.
+overflowed: it writes the first ``capacity`` survivors of the whole leaf,
+in index order, to one dense list in a single pass over the leaf
+(``compact_gt_exact_leaf``, a chained scan with decoupled look-back;
+twin ``ref.compact_gt_exact``). The reference has no kernel for this and
+filters in ``jnp`` instead.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ import functools
 import torch
 
 from . import ref
-from .common import (I, L, P, ROW, check_leaf, device_scalar, launches,
-                     raise_on, stream)
+from .common import (I, L, P, ROW, aligned, check_leaf, device_scalar,
+                     launches, raise_on, stream)
+
+EXACT_TILE = 8192   # elements per tile of compact_gt_exact_leaf (leaf.cu)
 
 
 @functools.cache
@@ -39,7 +42,7 @@ def _fn():
 def _exact_fn():
     from .build import load
     fn = load("leaf").compact_gt_exact_launch
-    fn.argtypes = [P, L, P, P, P, I, P, P, P]
+    fn.argtypes = [P, L, I, P, I, P, P, P, I, P]
     fn.restype = I
     return fn
 
@@ -71,35 +74,28 @@ def compact_gt(x: torch.Tensor, threshold: torch.Tensor, cap_per_block: int
 
 
 def compact_gt_exact(x: torch.Tensor, threshold: torch.Tensor,
-                     counts: torch.Tensor, capacity: int
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(values f32 [capacity], global indices i32 [capacity]): the first
     ``capacity`` elements with |x| > threshold in index order, padded
-    with ``(0.0, n)``. ``counts`` are the pre-clamp row counts that
-    ``compact_gt`` returned for the same leaf and threshold; the kernel
-    places each row's survivors after those of the rows before it."""
+    with ``(0.0, n)``."""
     if x.device.type == "cpu":
         return ref.compact_gt_exact(ref.rows(x), threshold, capacity,
                                     x.numel())
     check_leaf(x, "compact_gt_exact")
-    n = x.numel()
-    nb = -(-n // ROW)
     if not 1 <= capacity < 2**31:
         raise ValueError(f"compact_gt_exact: capacity {capacity} not in "
                          "[1, 2^31)")
-    if (counts.device != x.device or counts.dtype != torch.int32
-            or tuple(counts.shape) != (nb,)):
-        raise ValueError(f"compact_gt_exact: counts must be i32 [{nb}] on "
-                         f"{x.device}, got {counts.dtype} "
-                         f"{tuple(counts.shape)} on {counts.device}")
     thr = device_scalar(threshold, x, "compact_gt_exact")
-    cnt = counts.contiguous()
-    incl = torch.cumsum(cnt, 0, dtype=torch.int32)
+    n = x.numel()
+    tiles = -(-n // EXACT_TILE)
     vals = torch.empty(capacity, dtype=torch.float32, device=x.device)
     idx = torch.empty(capacity, dtype=torch.int32, device=x.device)
-    rc = _exact_fn()(x.data_ptr(), n, thr.data_ptr(), cnt.data_ptr(),
-                     incl.data_ptr(), capacity, vals.data_ptr(),
-                     idx.data_ptr(), stream())
+    # per tile one flag word (status, prefix), then the tile counter;
+    # the launch zeroes it
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=x.device)
+    rc = _exact_fn()(x.data_ptr(), n, aligned(x), thr.data_ptr(), capacity,
+                     vals.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+                     tiles, stream())
     raise_on(rc, "compact_gt_exact")
     launches["compact_gt_exact"] += 1
     return vals, idx

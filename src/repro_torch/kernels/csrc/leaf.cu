@@ -16,9 +16,12 @@
 // the 15M-element embedding / softmax leaves of the paper's LSTM, 36 MB for
 // a 9M-element gate matrix) at ~1 op per element; the residual update moves
 // five f32 streams (g, U, V in; U', V' out). At 3.35 TB/s that is 18 / 11
-// us per pass and 90 / 54 us for the update. The designs are the simple
-// ones: float4 loads where the pointers allow, a grid-stride loop sized to
-// the card, one integer atomic per block; speed work comes later.
+// us per pass and 90 / 54 us for the update. count_gt, compact_gt and the
+// update are the simple designs: float4 loads where the pointers allow, a
+// grid-stride loop sized to the card, one integer atomic per block.
+// abs_sum_max and compact_gt_exact are redesigned for this card (the
+// comments above each say how): many float4 loads in flight per thread and
+// one launch each, with no second pass over the leaf or its partials.
 //
 // Numerics follow the reference's default jnp backend, not the Pallas
 // bodies: abs_sum_max's sum is selection.pinned_sum's halving tree over the
@@ -89,29 +92,200 @@ count_gt_leaf(const float* __restrict__ x, long long n, int vec,
   }
 }
 
-// Phase 1 of the leaf's pinned statistics. With P = next_pow2(n) =
-// 2^(logc + logr) the leaf is viewed as [R, C], element e = t*C + i; thread
-// i folds column i (fold_column, common.cuh). Elements e >= n are the
-// pinned tree's zero padding and are not read. Phase 2 is finish_partials.
-__global__ void __launch_bounds__(COLFOLD_THREADS)
-abs_colfold_leaf(const float* __restrict__ x, long long n, int logc, int logr,
-                 float* __restrict__ part_sum, float* __restrict__ part_max) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (1 << logc)) return;
-  const long long C = 1LL << logc;
-  float sum, mx;
-  fold_column(logr, [&](int t) {
-    const long long e = static_cast<long long>(t) * C + i;
-    return e < n ? fabsf(x[e]) : 0.f;
-  }, sum, mx);
-  part_sum[i] = sum;
-  part_max[i] = mx;
+// ---- abs_sum_max ---------------------------------------------------------
+// (sum|x|, max|x|) of the leaf in one launch. The sum is selection.pinned_sum:
+// the halving tree over the leaf zero-padded to P = 2^logp (padding P past
+// next_pow2(n) adds zero leaves and changes no bit). Viewed as [R, M] with
+// R = 2^logr rows and M = 2^logm columns, element e = t*M + c, the tree's
+// first logr levels fold each column over its rows in bit-reversed row order
+// (fold_column, common.cuh) and the last logm levels halve the M column
+// partials; any split gives the same bits. The max is order-free.
+//
+// The old design (one thread per column, 2^16 columns, scalar loads) kept
+// ~16 KB of loads in flight per SM and finished on one SM in a second
+// launch. Here a block owns 32 adjacent columns (8 lanes x float4, 128
+// bytes per row) and 32 row groups; group g folds the rows at bit-reversed
+// positions [g 2^h, (g+1) 2^h) (h = logr - 5), i.e. rows bitrev5(g) +
+// 32 bitrev_h(u), eight rows a step: each thread issues its 8 float4 loads
+// (4 independent columns each) before it uses any, and merges the step on a
+// binary counter held in registers. The 32 groups' subtrees are then added
+// pairwise in shared memory, so the block writes its 32 finished columns.
+// The last block to finish (a counter the launch zeroes) folds the M <= 8192
+// column partials (all its loads issued at once) and the block maxima, in
+// the same launch. Rows past the leaf (P > n) issue no loads: each load is
+// predicated.
+constexpr int AS_THREADS = 256;
+constexpr int AS_COLS = 32;      // columns per block
+constexpr int AS_GROUPS = 32;    // row groups per block (AS_THREADS / 8)
+constexpr int AS_BATCH = 8;      // rows per step of a group
+constexpr int AS_TAIL = 32;      // column partials per thread in the finish
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
-__global__ void __launch_bounds__(FINISH_THREADS)
-abs_finish_leaf(int logc, const float* __restrict__ part_sum,
-                const float* __restrict__ part_max, float* __restrict__ out) {
-  finish_partials(logc, part_sum, part_max, out, out + 1);
+// x[e .. e+3] as one float4 load (read-only path) when pred, else zeros and
+// no memory request: a predicated load, so no branch sits between a step's
+// loads and a row past the leaf costs nothing.
+__device__ __forceinline__ float4 ldg4_if(const float* p, bool pred) {
+  float4 v;
+  asm volatile(
+      "{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %5, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "mov.f32 %2, 0f00000000;\n\tmov.f32 %3, 0f00000000;\n\t"
+      "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n\t}"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "r"(static_cast<int>(pred)));
+  return v;
+}
+
+// |x[e .. e+3]| by scalar loads, zero at and past n: the ragged row of the
+// leaf, or a leaf that is not 16-byte aligned.
+__device__ __forceinline__ float4 abs4_scalar(const float* __restrict__ x,
+                                              unsigned e, unsigned n) {
+  return make_float4(e < n ? fabsf(x[e]) : 0.f,
+                     e + 1 < n ? fabsf(x[e + 1]) : 0.f,
+                     e + 2 < n ? fabsf(x[e + 2]) : 0.f,
+                     e + 3 < n ? fabsf(x[e + 3]) : 0.f);
+}
+
+// part: M column partials, then gridDim.x block maxima, then the
+// blocks-done counter (zeroed by the launch); out: (sum|x|, max|x|).
+// DEPTH: binary-counter levels, enough for 2^(logr - 8) steps. Offsets are
+// 32-bit: P <= 2^31.
+template <int DEPTH>
+__global__ void __launch_bounds__(AS_THREADS, 2)
+abs_sum_max_leaf(const float* __restrict__ x, unsigned n, int vec, int logm,
+                 int logr, float* __restrict__ part, float* __restrict__ out) {
+  __shared__ float s_sum[AS_GROUPS][AS_COLS + 1];
+  __shared__ float s_max[AS_THREADS / 32];
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = tid >> 3;
+  const int h = logr - 5;
+  const unsigned M = 1u << logm;
+  const unsigned col = blockIdx.x * AS_COLS + 4 * (tid & 7);
+  const unsigned row0 = __brev(static_cast<unsigned>(g)) >> 27;
+  float4 lvl[DEPTH];
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d) lvl[d] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float mx = 0.f;
+  const int steps = 1 << (h - 3);
+  for (int b = 0; b < steps; ++b) {
+    unsigned off[AS_BATCH];
+    bool whole = vec;   // no load of the step straddles n
+#pragma unroll
+    for (int u = 0; u < AS_BATCH; ++u) {
+      const unsigned j = static_cast<unsigned>(b * AS_BATCH + u);
+      off[u] = (row0 + 32u * (__brev(j) >> (32 - h))) * M + col;
+      whole &= off[u] + 3 < n || off[u] >= n;
+    }
+    float4 v[AS_BATCH];
+    if (whole) {
+      // all eight loads issued before any is used; rows past n load nothing
+#pragma unroll
+      for (int u = 0; u < AS_BATCH; ++u) v[u] = ldg4_if(x + off[u], off[u] < n);
+#pragma unroll
+      for (int u = 0; u < AS_BATCH; ++u)
+        v[u] = make_float4(fabsf(v[u].x), fabsf(v[u].y), fabsf(v[u].z),
+                           fabsf(v[u].w));
+    } else {
+#pragma unroll
+      for (int u = 0; u < AS_BATCH; ++u) v[u] = abs4_scalar(x, off[u], n);
+    }
+#pragma unroll
+    for (int u = 0; u < AS_BATCH; ++u)
+      mx = fmaxf(mx, fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w)));
+    acc = add4(add4(add4(v[0], v[1]), add4(v[2], v[3])),
+               add4(add4(v[4], v[5]), add4(v[6], v[7])));
+    // binary counter: level d holds the pending left subtree of 2^d steps
+    bool placed = false;
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) {
+      if (!placed) {
+        if ((b >> d) & 1) {
+          acc = add4(lvl[d], acc);
+        } else {
+          lvl[d] = acc;
+          placed = true;
+        }
+      }
+    }
+  }
+  // acc: group g's subtree of each of its 4 columns
+  const int c0 = 4 * (tid & 7);
+  s_sum[g][c0] = acc.x;
+  s_sum[g][c0 + 1] = acc.y;
+  s_sum[g][c0 + 2] = acc.z;
+  s_sum[g][c0 + 3] = acc.w;
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+  if (lane == 0) s_max[tid >> 5] = mx;
+  __syncthreads();
+  for (int step = 1; step < AS_GROUPS; step <<= 1) {
+    for (int i = tid; i < AS_GROUPS / (2 * step) * AS_COLS; i += AS_THREADS) {
+      const int gl = (i / AS_COLS) * 2 * step;
+      const int c = i % AS_COLS;
+      s_sum[gl][c] = __fadd_rn(s_sum[gl][c], s_sum[gl + step][c]);
+    }
+    __syncthreads();
+  }
+  float* part_max = part + M;
+  unsigned* done = reinterpret_cast<unsigned*>(part_max + gridDim.x);
+  if (tid < AS_COLS) part[blockIdx.x * AS_COLS + tid] = s_sum[0][tid];
+  if (tid == 0) {
+    float bm = s_max[0];
+    for (int w = 1; w < AS_THREADS / 32; ++w) bm = fmaxf(bm, s_max[w]);
+    part_max[blockIdx.x] = bm;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last logm levels: the M partials as [M / C2, C2] column folds (the
+  // column's 2^logr2 <= 32 partials loaded at once, in bit-reversed order,
+  // and added pairwise; zeros past 2^logr2 add nothing), then a halving of
+  // the C2 <= 256 results in shared memory
+  const int logc2 = logm < 8 ? logm : 8;
+  const int C2 = 1 << logc2;
+  const int logr2 = logm - logc2;
+  float r[AS_TAIL];
+#pragma unroll
+  for (int j = 0; j < AS_TAIL; ++j) {
+    const unsigned jr = __brev(static_cast<unsigned>(j));
+    const int row = logr2 ? static_cast<int>(jr >> (32 - logr2)) : 0;
+    r[j] = tid < C2 && j < (1 << logr2) ? __ldcg(part + row * C2 + tid) : 0.f;
+  }
+#pragma unroll
+  for (int s = 1; s < AS_TAIL; s <<= 1) {
+#pragma unroll
+    for (int i = 0; i < AS_TAIL; i += 2 * s) r[i] = __fadd_rn(r[i], r[i + s]);
+  }
+  float bm = 0.f;
+  for (int i = tid; i < static_cast<int>(gridDim.x); i += AS_THREADS)
+    bm = fmaxf(bm, __ldcg(part_max + i));
+  for (int off = 16; off > 0; off >>= 1)
+    bm = fmaxf(bm, __shfl_xor_sync(FULL, bm, off));
+  float* red = &s_sum[0][0];
+  __syncthreads();
+  if (tid < C2) red[tid] = r[0];
+  if (lane == 0) s_max[tid >> 5] = bm;
+  __syncthreads();
+  for (int hh = C2 >> 1; hh >= 1; hh >>= 1) {
+    if (tid < hh) red[tid] = __fadd_rn(red[tid], red[tid + hh]);
+    __syncthreads();
+  }
+  if (tid == 0) {
+    for (int w = 1; w < AS_THREADS / 32; ++w) bm = fmaxf(bm, s_max[w]);
+    out[0] = red[0];
+    out[1] = fmaxf(bm, s_max[0]);
+  }
 }
 
 // One block per 1024-element row of the leaf, one thread per element. A
@@ -145,41 +319,189 @@ compact_gt_leaf(const float* __restrict__ x, long long n,
   if (col == 0) cnt[row] = total;
 }
 
-// The exact form, run when some row's survivors overflowed its bucket: the
-// same ranking, but survivor pos of a row goes to slot base + pos of one
-// dense list of len slots, where base = incl[row] - cnt[row] is the number
-// of survivors in the rows before it (cnt: the per-row counts compact_gt
-// returned; incl: their inclusive prefix sum). So the list holds the first
-// len survivors of the leaf in index order, whatever their rows. A row
-// whose base is at or past len returns before it reads x (the test is
-// uniform over the block, so row_rank's barriers stay whole); the last row
-// pads the slots after the last survivor with (0, n).
-__global__ void __launch_bounds__(ROW)
-compact_gt_exact_leaf(const float* __restrict__ x, long long n,
-                      const float* __restrict__ thr,
-                      const int* __restrict__ cnt, const int* __restrict__ incl,
-                      int len, float* __restrict__ vals,
-                      int* __restrict__ idx) {
-  const int row = blockIdx.x;
-  const int col = threadIdx.x;
-  const int end = incl[row];
-  const int base = end - cnt[row];
-  if (row == static_cast<int>(gridDim.x) - 1) {
-    for (int p = end + col; p < len; p += ROW) {
-      vals[p] = 0.f;
-      idx[p] = static_cast<int>(n);
+// ---- compact_gt_exact ----------------------------------------------------
+// The exact form of compact_gt, run when some row's survivors overflowed
+// its bucket: the first len survivors of the leaf in index order, in one
+// dense list padded with (0, n), in a single pass over the leaf (a chained
+// scan with decoupled look-back, Merrill & Garland 2016). The old design
+// ranked each 1024-element row in its own block from compact_gt's row
+// counts and their cumsum, so an overflow read the leaf twice in three
+// launches.
+//
+// A tile is CE_TILE = 8192 elements: each thread issues 8 float4 loads
+// (streaming, evict-first) before it uses any (scalar loads for a
+// misaligned leaf or the tile that ends the leaf), element
+// base + j*1024 + 4*tid + c, and keeps only the 4-bit survivor masks: the
+// few survivors' values are read again when they are written (0.6% of the
+// elements at the main path's thresholds), so a thread holds 40 registers
+// and six blocks fit on an SM, whose loads cover the others' waits. Tiles
+// are taken in launch order from a counter, so every tile a block waits for
+// is already held by a running block. A tile counts its survivors
+// (ballot/popc per warp and component, a scan of the 64 warp totals),
+// publishes its count (FLAG_AGG), looks back over the flags of the tiles
+// before it, 32 at a time, until one carries its inclusive prefix
+// (FLAG_INCL), publishes its own inclusive prefix, and writes its survivors
+// at exclusive prefix + rank, none at or past len. The tile that ends the
+// leaf pads [total, len), 16 bytes a store. Integer moves only, so the list
+// is exact.
+constexpr int CE_THREADS = 256;
+constexpr int CE_WARPS = CE_THREADS / 32;
+constexpr int CE_VEC = 8;                           // float4 per thread
+constexpr int CE_SUB = CE_THREADS * 4;              // elements per sub-row
+constexpr int CE_TILE = CE_SUB * CE_VEC;            // compact.EXACT_TILE
+constexpr unsigned long long FLAG_AGG = 1ull << 32;   // the tile's count
+constexpr unsigned long long FLAG_INCL = 2ull << 32;  // its inclusive prefix
+
+__device__ __forceinline__ unsigned long long load_flag(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_flag(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// flags: one word per tile (status << 32 | value), then the tile counter;
+// all zeroed by the launch. vals, idx: 16-byte aligned.
+__global__ void __launch_bounds__(CE_THREADS, 6)
+compact_gt_exact_leaf(const float* __restrict__ x, long long n, int vec,
+                      const float* __restrict__ thr, int len,
+                      float* __restrict__ vals, int* __restrict__ idx,
+                      unsigned long long* __restrict__ flags,
+                      unsigned* __restrict__ next_tile, int tiles) {
+  __shared__ int s_tile;
+  __shared__ int s_excl;
+  __shared__ int s_total;
+  __shared__ int s_woff[CE_VEC * CE_WARPS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float t = *thr;
+  if (tid == 0) s_tile = static_cast<int>(atomicAdd(next_tile, 1u));
+  __syncthreads();
+  const int tile = s_tile;
+  const long long base = static_cast<long long>(tile) * CE_TILE;
+  unsigned m[CE_VEC];   // survivor bits of the thread's 4 elements, per j
+  if (vec && base + CE_TILE <= n) {
+    float4 v[CE_VEC];
+#pragma unroll
+    for (int j = 0; j < CE_VEC; ++j)
+      v[j] = __ldcs(reinterpret_cast<const float4*>(x + base + j * CE_SUB) +
+                    tid);
+#pragma unroll
+    for (int j = 0; j < CE_VEC; ++j)
+      m[j] = static_cast<unsigned>(fabsf(v[j].x) > t) |
+             static_cast<unsigned>(fabsf(v[j].y) > t) << 1 |
+             static_cast<unsigned>(fabsf(v[j].z) > t) << 2 |
+             static_cast<unsigned>(fabsf(v[j].w) > t) << 3;
+  } else {
+    // the tile that ends the leaf, or a leaf that is not 16-byte aligned
+#pragma unroll
+    for (int j = 0; j < CE_VEC; ++j) {
+      const long long e = base + j * CE_SUB + 4 * tid;
+      m[j] = static_cast<unsigned>(e < n && fabsf(x[e]) > t) |
+             static_cast<unsigned>(e + 1 < n && fabsf(x[e + 1]) > t) << 1 |
+             static_cast<unsigned>(e + 2 < n && fabsf(x[e + 2]) > t) << 2 |
+             static_cast<unsigned>(e + 3 < n && fabsf(x[e + 3]) > t) << 3;
     }
   }
-  if (base >= len) return;
-  const float t = *thr;
-  const long long g = static_cast<long long>(row) * ROW + col;
-  const float v = g < n ? x[g] : 0.f;
-  const bool m = g < n && fabsf(v) > t;
-  int total;
-  const int p = base + row_rank(m, total);
-  if (m && p < len) {
-    vals[p] = v;
-    idx[p] = static_cast<int>(g);
+  // rank inside the warp: survivors of the lanes before, all components
+  int before[CE_VEC];
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < CE_VEC; ++j) {
+    int tot = 0, pre = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned bal = __ballot_sync(FULL, (m[j] >> c) & 1u);
+      tot += __popc(bal);
+      pre += __popc(bal & lower);
+    }
+    before[j] = pre;
+    if (lane == 0) s_woff[j * CE_WARPS + warp] = tot;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // exclusive scan of the 64 warp totals in element order, two per lane
+    const int a0 = s_woff[2 * lane];
+    const int a1 = s_woff[2 * lane + 1];
+    int inc = a0 + a1;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, inc, off);
+      if (lane >= off) inc += y;
+    }
+    s_woff[2 * lane] = inc - a0 - a1;
+    s_woff[2 * lane + 1] = inc - a1;
+    const long long agg = __shfl_sync(FULL, inc, 31);
+    long long excl = 0;
+    if (tile > 0) {
+      if (lane == 0) store_flag(flags + tile, FLAG_AGG | agg);
+      for (int pred = tile - 1;; pred -= 32) {
+        const int i = pred - lane;
+        unsigned long long f = i >= 0 ? load_flag(flags + i) : FLAG_INCL;
+        while (__any_sync(FULL, (f >> 32) == 0)) {
+          if ((f >> 32) == 0) f = load_flag(flags + i);
+        }
+        const unsigned incl = __ballot_sync(FULL, (f >> 32) == 2);
+        const int stop = incl ? __ffs(incl) - 1 : 31;
+        long long add =
+            lane <= stop ? static_cast<long long>(f & 0xffffffffull) : 0;
+        for (int off = 16; off > 0; off >>= 1)
+          add += __shfl_xor_sync(FULL, add, off);
+        excl += add;
+        if (incl) break;
+      }
+    }
+    if (lane == 0) {
+      store_flag(flags + tile,
+                 FLAG_INCL | static_cast<unsigned long long>(excl + agg));
+      s_excl = static_cast<int>(excl);
+      s_total = static_cast<int>(excl + agg < len ? excl + agg : len);
+    }
+  }
+  __syncthreads();
+  const long long excl = s_excl;
+  if (excl < len) {
+#pragma unroll
+    for (int j = 0; j < CE_VEC; ++j) {
+      if (!m[j]) continue;
+      const long long e = base + j * CE_SUB + 4 * tid;
+      long long p = excl + s_woff[j * CE_WARPS + warp] + before[j];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if ((m[j] >> c) & 1u) {
+          if (p < len) {
+            vals[p] = x[e + c];
+            idx[p] = static_cast<int>(e + c);
+          }
+          ++p;
+        }
+      }
+    }
+  }
+  if (tile == tiles - 1) {
+    // [total, len): scalars up to a multiple of 4, then 16-byte stores
+    const long long total = s_total;
+    const long long a = (total + 3) & ~3LL;
+    const int pad = static_cast<int>(n);
+    if (total + tid < a && total + tid < len) {
+      vals[total + tid] = 0.f;
+      idx[total + tid] = pad;
+    }
+    for (long long q = a + 4 * tid; q + 3 < len; q += 4 * CE_THREADS) {
+      *reinterpret_cast<float4*>(vals + q) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<int4*>(idx + q) = make_int4(pad, pad, pad, pad);
+    }
+    const long long rest = a + ((len - a) & ~3LL);
+    if (a < len && rest + tid < len) {
+      vals[rest + tid] = 0.f;
+      idx[rest + tid] = pad;
+    }
   }
 }
 
@@ -226,6 +548,23 @@ residual_update_leaf(const float* __restrict__ g, const float* __restrict__ u,
     up(g[i], u[i], v[i], uo[i], vo[i]);
 }
 
+// Zeroes n 32-bit words: the scratch counters and flags of abs_sum_max and
+// compact_gt_exact, as a kernel launched just before them; in a CUDA graph
+// a memset node (cudaMemsetAsync) took longer (PERF.md §6).
+__global__ void __launch_bounds__(THREADS)
+zero_words(unsigned* __restrict__ p, int n) {
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += gridDim.x * THREADS)
+    p[i] = 0u;
+}
+
+cudaError_t zero(unsigned* p, int n, cudaStream_t st) {
+  const int blocks = (n + THREADS - 1) / THREADS;
+  zero_words<<<blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS, THREADS, 0, st>>>(
+      p, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,18 +580,29 @@ int count_gt_launch(const float* x, long long n, int vec, const float* thr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: 2 << logc floats of scratch (sums, then maxima); out: 2 floats
-// (sum|x|, max|x|).
-int abs_sum_max_launch(const float* x, long long n, int logc, int logr,
-                       float* part, float* out, void* stream) {
+// part: 2^logm + 2^(logm - 5) + 1 floats of scratch (column partials,
+// block maxima, the blocks-done counter, which this zeroes); out: 2 floats
+// (sum|x|, max|x|). logp: log2 of the padded length (>= log2
+// next_pow2(n), <= 31); logm: log2 of the columns, 5 <= logm <= 13,
+// 8 <= logp - logm <= 18.
+int abs_sum_max_launch(const float* x, long long n, int vec, int logp,
+                       int logm, float* part, float* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cols = 1 << logc;
-  abs_colfold_leaf<<<(cols + COLFOLD_THREADS - 1) / COLFOLD_THREADS,
-                     COLFOLD_THREADS, 0, st>>>(x, n, logc, logr, part,
-                                               part + cols);
-  const cudaError_t err = cudaGetLastError();
+  const int logr = logp - logm;
+  if (logm < 5 || logm > 13 || logr < 8 || logr > 18 || logp > 31 ||
+      (1LL << logp) < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = 1 << (logm - 5);
+  const cudaError_t err = zero(
+      reinterpret_cast<unsigned*>(part + (1 << logm) + blocks), 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  abs_finish_leaf<<<1, FINISH_THREADS, 0, st>>>(logc, part, part + cols, out);
+  const unsigned un = static_cast<unsigned>(n);
+  if (logr <= 11)   // up to 8 steps a group: P <= 2^24 at 2^13 columns
+    abs_sum_max_leaf<3><<<blocks, AS_THREADS, 0, st>>>(x, un, vec, logm, logr,
+                                                       part, out);
+  else
+    abs_sum_max_leaf<10><<<blocks, AS_THREADS, 0, st>>>(x, un, vec, logm,
+                                                        logr, part, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -264,14 +614,21 @@ int compact_gt_launch(const float* x, long long n, const float* thr, int cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cnt, incl: nb = ceil(n / 1024) ints each (see compact_gt_exact_leaf);
-// vals, idx: len slots.
-int compact_gt_exact_launch(const float* x, long long n, const float* thr,
-                            const int* cnt, const int* incl, int len,
-                            float* vals, int* idx, void* stream) {
-  const int nb = static_cast<int>((n + ROW - 1) / ROW);
-  compact_gt_exact_leaf<<<nb, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, n, thr, cnt, incl, len, vals, idx);
+// vals, idx: len slots; scratch: tiles + 1 words (the tile flags, then the
+// tile counter), zeroed here; tiles = ceil(n / CE_TILE).
+int compact_gt_exact_launch(const float* x, long long n, int vec,
+                            const float* thr, int len, float* vals, int* idx,
+                            unsigned long long* scratch, int tiles,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tiles != static_cast<int>((n + CE_TILE - 1) / CE_TILE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      zero(reinterpret_cast<unsigned*>(scratch), 2 * (tiles + 1), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  compact_gt_exact_leaf<<<tiles, CE_THREADS, 0, st>>>(
+      x, n, vec, thr, len, vals, idx, scratch,
+      reinterpret_cast<unsigned*>(scratch + tiles), tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,12 +11,13 @@ Port of ``src/repro/kernels/ops.py``:
 
 When a row's survivors overflow its bucket, ``compact_gt_exact`` writes
 every survivor (the filter: the first ``capacity``) to one dense list in
-index order, from the row counts ``compact_gt`` returned, and the gather
-reads that list instead: the selection stays on the kernels. The one
-plain step is the short pick of a trimmed top-k whose ladder ran out
-with fewer than k survivors, which reads only the leaf's first k
-elements (``_short_pick``). ``common.branches`` counts both branches on
-either device.
+index order in one pass over the leaf, and the gather reads that list
+instead: the selection stays on the kernels. The one plain step is the
+short pick of a trimmed top-k whose ladder ran out with fewer than k
+survivors, which reads only the leaf's first k elements
+(``_short_pick``). ``pick_trimmed`` and ``pick_first`` hold these
+branches; ``segmented.multi_select`` runs them on each arena slot too.
+``common.branches`` counts both branches on either device.
 
 The kernel wrappers (``threshold_count``, ``block_stats``, ``compact``)
 pick the device: the CUDA kernel for a CUDA tensor, the plain twin for a
@@ -114,20 +115,46 @@ def trimmed_topk(x: torch.Tensor, k: int, *, eps: float = 0.2) -> Selected:
 
     cap = _cap_for(2 * k, _nb(n), DEFAULT_BLOCK)
     vals, idx, counts = compact.compact_gt(x, thr, cap)
-    over, short = torch.stack(((counts > cap).any(), nnz < k)).tolist()
+    over, short, alive = torch.stack(
+        ((counts > cap).any().long(), (nnz < k).long(),
+         counts.sum().long())).tolist()
+    si, sv = pick_trimmed(x, thr, k, vals, idx, over, short, alive)
+    return Selected(si, sv, torch.tensor(k, dtype=torch.int32,
+                                         device=x.device))
+
+
+def pick_trimmed(x: torch.Tensor, thr: torch.Tensor, k: int,
+                 vals: torch.Tensor, idx: torch.Tensor, over: bool,
+                 short: bool, alive: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The trimmed top-k of flat ``x`` at ``thr`` from its survivor
+    buckets (``vals``, ``idx``): after a bucket overflow, from the exact
+    list of every survivor (``alive`` of them; at least k slots, so a
+    short pick still ranks all of them); with fewer than k survivors,
+    completed by the short pick. Returns (indices, values)."""
     if over:
-        # every survivor, in index order (at least k slots, so a short
-        # pick still ranks all of them)
         branches["exact_compaction"] += 1
-        vals, idx = compact.compact_gt_exact(x, thr, counts,
-                                             max(k, int(counts.sum())))
-    si, sv = _gather_topk_from_buckets(vals, idx, k, n,
+        vals, idx = compact.compact_gt_exact(x, thr, max(k, alive))
+    si, sv = _gather_topk_from_buckets(vals, idx, k, x.numel(),
                                        order_by_magnitude=True)
     if short:
         branches["short_pick"] += 1
         si, sv = _short_pick(x, thr, si, sv, k)
-    return Selected(si, sv, torch.tensor(k, dtype=torch.int32,
-                                         device=x.device))
+    return si, sv
+
+
+def pick_first(x: torch.Tensor, thr: torch.Tensor, capacity: int,
+               vals: torch.Tensor, idx: torch.Tensor, over: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first ``capacity`` survivors of flat ``x`` at ``thr`` in index
+    order, from its survivor buckets, or after a bucket overflow from the
+    exact form. Returns (indices, values)."""
+    if over:
+        branches["exact_compaction"] += 1
+        sv, si = compact.compact_gt_exact(x, thr, capacity)
+        return si, sv
+    return _gather_topk_from_buckets(vals, idx, capacity, x.numel(),
+                                     order_by_magnitude=False)
 
 
 def _short_pick(x: torch.Tensor, thr: torch.Tensor, si: torch.Tensor,
@@ -170,15 +197,10 @@ def threshold_filter(x: torch.Tensor, threshold: torch.Tensor,
 def _filter(x: torch.Tensor, thr: torch.Tensor, capacity: int) -> Selected:
     """count -> compact -> first-``capacity`` gather; after a bucket
     overflow, the first ``capacity`` survivors from the exact form."""
-    n = x.numel()
     nnz = threshold_count.count_gt(x, thr)
-    cap = _cap_for(capacity, _nb(n), DEFAULT_BLOCK)
+    cap = _cap_for(capacity, _nb(x.numel()), DEFAULT_BLOCK)
     vals, idx, counts = compact.compact_gt(x, thr, cap)
-    if bool((counts > cap).any()):
-        branches["exact_compaction"] += 1
-        sv, si = compact.compact_gt_exact(x, thr, counts, capacity)
-    else:
-        si, sv = _gather_topk_from_buckets(vals, idx, capacity, n,
-                                           order_by_magnitude=False)
+    si, sv = pick_first(x, thr, capacity, vals, idx,
+                        bool((counts > cap).any()))
     return Selected(si, sv, torch.clamp(nnz, max=capacity).to(torch.int32),
                     nnz > capacity)

@@ -28,9 +28,15 @@ with one count launch per search iteration; sampled slots (a stride > 1
 in their ``SegmentSpec``) search on strided statistics and strided
 counts scaled by the stride, and the final count stays exact. It follows
 the reference's ``use_pallas=False`` (jnp) semantics on both devices: the
-trimmed fallback to exact top-k fires on bucket overflow OR when fewer
-than k elements survive the last rung. Its search loop is a host loop:
-one ``.item()`` per iteration decides whether to go on.
+trimmed slots' exact top-k of the trimmed scores on a bucket overflow OR
+when fewer than k elements survive the last rung, the filter slots' first
+``capacity`` survivors on a bucket overflow. It reaches them as the
+per-leaf selectors do (``ops.pick_trimmed``, ``ops.pick_first``): the
+slot's survivors from the exact compaction ``compact.compact_gt_exact``
+on its flat view, and the short pick; no whole-slot filter or sort runs.
+``common.branches`` counts both. Its search loop is a host loop: one
+``.item()`` per iteration decides whether to go on, and one more sync
+reads every slot's overflow, short flag and survivor total.
 """
 from __future__ import annotations
 
@@ -41,14 +47,14 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.selection import (Selected, _pad_topk, bisect_midpoint,
+from repro_torch.core.selection import (Selected, bisect_midpoint,
                                         ladder_ratio, threshold_at,
-                                        threshold_filter, warm_ratio)
+                                        warm_ratio)
 
 from . import ref
 from .common import F as _F, I as _I, LOG_COLS, P as _P, ROW, launches
 from .common import raise_on as _raise_on, stream as _stream
-from .ops import _cap_for, _gather_topk_from_buckets
+from .ops import _cap_for, pick_first, pick_trimmed
 
 __all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
            "seg_residual_update_stats", "seg_stats", "seg_mean",
@@ -482,25 +488,16 @@ def multi_select(parts: list[tuple[torch.Tensor, Any, SegmentSpec,
                 trim_np, geom_all.seg_ks, caps_sel, geom_all.seg_rows)]
     vals, idx, cnts = seg_compact_gt(x_all, geom_all, thr, max(caps))
 
-    # --- per-slot gathers from the short buckets ------------------------
-    picks, flags = [], []
+    # --- per-slot selection: the short buckets, or the exact form ------
+    # One host sync reads every slot's bucket overflow, short flag (a
+    # trimmed slot with fewer than k survivors) and survivor total.
+    host = []
     for s in range(n):
         row0, row1 = geom_all.seg_rows[s]
-        cap, k, size = caps[s], geom_all.seg_ks[s], geom_all.seg_sizes[s]
-        overflow = (cnts[row0:row1] > cap).any()
-        if trim_np[s]:
-            picks.append(_gather_topk_from_buckets(
-                vals[row0:row1, :cap], idx[row0:row1, :cap], k, size,
-                order_by_magnitude=True))
-            # mirror selection.trimmed_topk: the full top-k pads with real
-            # zero-score indices when fewer than k survive
-            flags.append(overflow | (nnz_loop[s] < k))
-        else:
-            picks.append(_gather_topk_from_buckets(
-                vals[row0:row1, :cap], idx[row0:row1, :cap], caps_sel[s],
-                size, order_by_magnitude=False))
-            flags.append(overflow)
-    fallback = torch.stack(flags).tolist()       # one host sync for all
+        host += [(cnts[row0:row1] > caps[s]).any(),
+                 nnz_loop[s] < geom_all.seg_ks[s],
+                 cnts[row0:row1].sum()]
+    host = torch.stack([h.to(torch.int64) for h in host]).tolist()
 
     results: list[tuple[list[Selected], torch.Tensor]] = []
     seg0 = 0
@@ -508,22 +505,19 @@ def multi_select(parts: list[tuple[torch.Tensor, Any, SegmentSpec,
         out: list[Selected] = []
         for sl in range(geom.n_seg):
             s = seg0 + sl
-            si, sv = picks[s]
+            row0, row1 = geom_all.seg_rows[s]
+            over, short, alive = host[3 * s:3 * s + 3]
+            flat = _slot_flat(x2d, geom, sl)
+            vals_s = vals[row0:row1, :caps[s]]
+            idx_s = idx[row0:row1, :caps[s]]
             if trim_np[s]:
-                if fallback[s]:
-                    flat = _slot_flat(x2d, geom, sl)
-                    ax = flat.abs()
-                    e = _pad_topk(flat, torch.where(ax > thr[s], ax,
-                                                    torch.zeros_like(ax)),
-                                  geom.seg_ks[sl])
-                    si, sv = e.indices, e.values
+                si, sv = pick_trimmed(flat, thr[s], geom.seg_ks[sl], vals_s,
+                                      idx_s, over, short, alive)
                 out.append(Selected(si, sv, torch.tensor(
                     geom.seg_ks[sl], dtype=torch.int32, device=dev)))
             else:
-                if fallback[s]:
-                    e = threshold_filter(_slot_flat(x2d, geom, sl), thr[s],
-                                         capacity=caps_sel[s])
-                    si, sv = e.indices, e.values
+                si, sv = pick_first(flat, thr[s], caps_sel[s], vals_s,
+                                    idx_s, over)
                 out.append(Selected(
                     si, sv, torch.clamp(nnz_full[s], max=caps_sel[s]),
                     nnz_full[s] > caps_sel[s]))

@@ -122,7 +122,8 @@ def test_twins_match_pallas_interpret():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def _spec_pair(kind: str, n_seg: int, seed: int):
+def _spec_pair(kind: str, n_seg: int, seed: int, ks=SEG_KS,
+               strides=STRIDES):
     """Matching (reference, port) SegmentSpecs for one arena."""
     torch = pytest.importorskip("torch")
     import jax.numpy as jnp
@@ -143,7 +144,7 @@ def _spec_pair(kind: str, n_seg: int, seed: int):
     if kind == "reuse":
         refresh[::2] = False
     # sampled: strided statistics and counts, 3k message capacity
-    kw = (dict(strides=STRIDES, capacities=tuple(3 * k for k in SEG_KS))
+    kw = (dict(strides=strides, capacities=tuple(3 * k for k in ks))
           if sampled else {})
     j = jseg.SegmentSpec(
         alg="bsearch", eps=1e-3, refresh=jnp.asarray(refresh),
@@ -156,7 +157,7 @@ def _spec_pair(kind: str, n_seg: int, seed: int):
     return j, t
 
 
-def _check_multi(parts_np, kinds):
+def _check_multi(parts_np, kinds, **spec_kw):
     """The reference runs under ``jax.jit`` (its selection arithmetic is
     pinned, so jit and eager agree bitwise)."""
     torch = pytest.importorskip("torch")
@@ -167,7 +168,7 @@ def _check_multi(parts_np, kinds):
     from repro_torch.kernels import segmented as kseg
     jparts, tparts = [], []
     for (x, jg, tg), kind, seed in zip(parts_np, kinds, range(10)):
-        js, ts = _spec_pair(kind, tg.geometry.n_seg, seed)
+        js, ts = _spec_pair(kind, tg.geometry.n_seg, seed, **spec_kw)
         jparts.append((jnp.asarray(x), jg.geometry, js, None))
         tparts.append((torch.from_numpy(x), tg.geometry, ts, None))
     want = jax.jit(lambda: jseg.multi_select(jparts, use_pallas=False))()
@@ -185,14 +186,74 @@ def _check_multi(parts_np, kinds):
                 assert bool(g.overflow) == bool(w.overflow)
 
 
+# Slots whose survivors crowd one row: with k 20 and 16 over 10 and 8 rows
+# the buckets hold 16 (24 for the sampled capacity 3k), so 40-60 survivors
+# in a row overflow them; the 1500-element slot keeps its buckets.
+CROWD_SIZES = (10240, 1500, 8000)
+CROWD_KS = (20, 7, 16)
+CROWD_STRIDES = (16, 1, 8)
+
+
+def _crowded_arena(group, seed, short=False) -> np.ndarray:
+    """Slots 0 and 2: noise x 0.01 with 60 and 40 large distinct
+    magnitudes of alternating sign in their second row; slot 1 plain
+    normal. ``short``: slot 0 holds only 18 nonzeros, in its second row,
+    and slot 1 only four, so a trimmed ladder ends with fewer than k
+    survivors (slot 0 overflowing its bucket too)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(group.total, np.float32)
+    for s, crowd in zip(group.slots, (60, 0, 40)):
+        v = rng.standard_normal(s.size).astype(np.float32)
+        if crowd:
+            v *= np.float32(0.01)
+            v[1100:1100 + crowd] = (np.linspace(5.0, 6.0, crowd) *
+                                    (-1.0) ** np.arange(crowd))
+        x[s.offset:s.offset + s.size] = v
+    if short:
+        s0, s1 = group.slots[0], group.slots[1]
+        x[s0.offset:s0.offset + s0.size] = 0.0
+        x[s0.offset + 1030:s0.offset + 1048] = np.linspace(-6.0, 6.0, 18)
+        x[s1.offset:s1.offset + s1.size] = 0.0
+        x[s1.offset + np.array([5, 700, 1100, 1499])] = [1.0, -2.0, 0.5, 3.0]
+    return x.reshape(group.nblocks, 1024)
+
+
+# (kind, tied): the spec kind; "crowded_*" and "short_*" run the crowded
+# arena (CROWD_*), the others the ragged one (SIZES). The branches each
+# takes in the port: (exact compactions, short picks); the tied ragged
+# arenas overflow their buckets too. Cases not listed take neither.
+MULTI_BRANCHES = {"cold": (3, 0), "reuse": (3, 0), "sampled_cold": (3, 0),
+                  "sampled_reuse": (2, 0), "crowded_cold": (2, 0),
+                  "crowded_sampled_cold": (2, 0), "crowded_trimmed": (2, 0),
+                  "short_trimmed": (2, 2)}
+
+
 @pytest.mark.parametrize("kind,tied", [
     ("trimmed", False), ("cold", True), ("warm", False), ("reuse", True),
     ("sampled_cold", True), ("sampled_warm", False),
-    ("sampled_reuse", False)])
+    ("sampled_reuse", False), ("crowded_cold", False),
+    ("crowded_sampled_cold", False), ("crowded_trimmed", False),
+    ("short_trimmed", False)])
 def test_multi_select_matches_reference(kind, tied):
-    alg = "trimmed_topk" if kind == "trimmed" else "threshold_bsearch"
-    jg, tg = _groups(alg=alg)
-    _check_multi([(_arena(jg, 3, tied), jg, tg)], [kind])
+    """Bitwise the reference's jnp ``multi_select``; a slot whose survivors
+    overflow their buckets, or a trimmed slot with fewer than k survivors,
+    takes the exact compaction or the short pick (``common.branches``)."""
+    from repro_torch.kernels import common
+    crowded = kind.startswith(("crowded_", "short_"))
+    base = kind.split("_", 1)[1] if crowded else kind
+    alg = "trimmed_topk" if base == "trimmed" else "threshold_bsearch"
+    before = dict(common.branches)
+    if crowded:
+        jg, tg = _groups(CROWD_SIZES, CROWD_KS, alg=alg)
+        x = _crowded_arena(jg, 3, short=kind.startswith("short"))
+        _check_multi([(x, jg, tg)], [base], ks=CROWD_KS,
+                     strides=CROWD_STRIDES)
+    else:
+        jg, tg = _groups(alg=alg)
+        _check_multi([(_arena(jg, 3, tied), jg, tg)], [kind])
+    taken = tuple(common.branches[b] - before[b]
+                  for b in ("exact_compaction", "short_pick"))
+    assert taken == MULTI_BRANCHES.get(kind, (0, 0))
 
 
 def test_multi_select_two_arenas_one_call():

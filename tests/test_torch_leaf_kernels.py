@@ -73,8 +73,8 @@ def test_count_and_compact_twins_match_reference(n, tied):
 
 @pytest.mark.parametrize("n,tied", LEAVES)
 def test_compact_gt_exact_twin_matches_reference(n, tied):
-    """The exact form, from compact_gt's row counts, is the reference's
-    first-capacity filter: values, indices and padding bitwise."""
+    """The exact form is the reference's first-capacity filter: values,
+    indices and padding bitwise."""
     torch = pytest.importorskip("torch")
     import jax.numpy as jnp
 
@@ -84,9 +84,8 @@ def test_compact_gt_exact_twin_matches_reference(n, tied):
     xt = torch.from_numpy(x)
     for thr in (0.0, 0.5, 1.0):
         t = torch.tensor(np.float32(thr))
-        counts = compact.compact_gt(xt, t, 8)[2]
         for capacity in sorted({1, min(n, 50), n}):
-            gv, gi = compact.compact_gt_exact(xt, t, counts, capacity)
+            gv, gi = compact.compact_gt_exact(xt, t, capacity)
             want = jsel.threshold_filter(jnp.asarray(x), np.float32(thr),
                                          capacity)
             assert gi.dtype == torch.int32 and gv.dtype == torch.float32
@@ -290,7 +289,7 @@ def test_cuda_leaf_kernels_match_twins():
                     assert torch.equal(a, b)
                 for capacity in sorted({1, min(n, 50), n}):
                     for a, b in zip(
-                            compact.compact_gt_exact(x, t, got[2], capacity),
+                            compact.compact_gt_exact(x, t, capacity),
                             ref.compact_gt_exact(ref.rows(x), t, capacity,
                                                  n)):
                         assert torch.equal(a, b)

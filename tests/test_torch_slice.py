@@ -235,9 +235,7 @@ def test_kernel_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="no kernel"):
         compact.compact_gt(leaf, t, 8)
     with pytest.raises(ValueError, match="no kernel"):
-        compact.compact_gt_exact(leaf, t,
-                                 torch.zeros(3, dtype=torch.int32,
-                                             device="meta"), 8)
+        compact.compact_gt_exact(leaf, t, 8)
     with pytest.raises(ValueError, match="no kernel"):
         residual_update.residual_update(leaf, leaf, leaf, momentum=0.9,
                                         nesterov=False)
