@@ -15,8 +15,11 @@ the JAX package. Phases, each fatal on failure:
    CUDA graph, CUDA events) beside its bound, its per-call time from the
    host and its twin's time. The exact segmented forms run at the
    full-width arena of the paper's 2-layer 1500-unit LSTM under the
-   default dispatch (six slots, 64,458 rows) and on a small ragged arena
-   with ties, threshold 0 and bucket overflow; the strided (sampled)
+   default dispatch (six slots, 64,458 rows), on the same arena with 2%
+   of each slot's rows crowded wholly above the threshold (the bucketed
+   compaction at caps 16, 1 and 1024, and timed there too) and on a
+   small ragged arena with ties, threshold 0 and bucket overflow (caps 8,
+   1 and 1024); the strided (sampled)
    forms and the fused residual-update+stats pass at the full-width
    nine-slot sampled arena (strides 512 and 1, 64,480 rows) and on a
    ragged arena with strides 1-1024, slot sizes off the stride, ties and
@@ -25,8 +28,11 @@ the JAX package. Phases, each fatal on failure:
    kernels (count_gt, abs_sum_max, compact_gt, its exact form
    compact_gt_exact at up to four capacities, residual_update) run on the
    full-width leaves (15M and 9M elements, a threshold that overflows the
-   16-wide buckets in 100 rows, and threshold 0), on tied leaves of 1 to
-   70,000 elements and on a misaligned view, every output bitwise;
+   16-wide buckets in 100 rows, and threshold 0; compact_gt at caps 16, 1
+   and 1024), on the same leaves with 2% of their rows crowded wholly
+   above the threshold (compact_gt timed there too), on tied leaves of 1
+   to 70,000 elements and on two misaligned views (5,000 and 4,999
+   elements), every output bitwise;
    compact_gt_exact and abs_sum_max also on two slots of the full-width
    arena (the views multi_select gives them). abs_sum_max is timed
    against torch.linalg.vector_norm as a yardstick, compact_gt_exact both
@@ -212,6 +218,28 @@ def _arena_of(group, gen, scale: float = 1.0, tied: bool = False):
     return arena.gather(group, leaves)
 
 
+def _crowded(x, bands):
+    """A copy of ``x`` (a flat leaf or an [nb, 1024] arena) in which every
+    row of each [r0, r1) band lies wholly above any threshold below 4:
+    x -> sign(x) (4 + |x|); zeros (slot padding) stay zero. The rest
+    keeps its random fill. Real steps crowd their survivors into a few
+    rows: nearly every bucketed compaction of the main path overflows."""
+    import torch
+    y = x.clone()
+    flat = y.view(-1)
+    for r0, r1 in bands:
+        band = flat[r0 * 1024:r1 * 1024]
+        band.copy_(torch.where(band != 0, torch.sign(band) * (4 + band.abs()),
+                               band))
+    return y
+
+
+def _band(r0: int, r1: int) -> tuple[int, int]:
+    """2% of the rows [r0, r1) (at least one), a tenth of the way in."""
+    a = r0 + (r1 - r0) // 10
+    return a, a + max(1, (r1 - r0) // 50)
+
+
 def _same_bits(a, b) -> bool:
     import torch
     if a is None or b is None:
@@ -250,40 +278,51 @@ def phase_kernels(results: dict) -> None:
     full = full_width_group()
     x_full = _arena_of(full, gen)
     thr_full = torch.tensor([3.0, 3.1, 2.9, 3.0, 3.2, 3.0], device=dev)
-    cases.append(("full-width", x_full, full.geometry, thr_full, 16))
+    cases.append(("full-width", x_full, full.geometry, thr_full, (16,)))
+    # the survivors crowd 2% of each slot's rows; the bucket at the main
+    # path's cap 16, one slot, and every survivor of a row (cap 1024)
+    x_crowd = _crowded(x_full, [_band(*r) for r in full.geometry.seg_rows])
+    cases.append(("full-width crowded", x_crowd, full.geometry, thr_full,
+                  (16, 1, 1024)))
     rag = ragged_group()
     x_rag = _arena_of(rag, gen, tied=True)
     n_rag = rag.geometry.n_seg
     cases.append(("ragged thr=1", x_rag, rag.geometry,
-                  torch.full((n_rag,), 1.0, device=dev), 8))
+                  torch.full((n_rag,), 1.0, device=dev), (8,)))
     cases.append(("ragged thr=0 overflow", x_rag, rag.geometry,
-                  torch.zeros(n_rag, device=dev), 8))
+                  torch.zeros(n_rag, device=dev), (8, 1, 1024)))
 
     err = {"seg_abs_sum_max": 0.0, "seg_count_gt": 0.0,
            "seg_compact_gt": 0.0}
-    for name, x2d, geom, thr, cap in cases:
+    for name, x2d, geom, thr, caps in cases:
         ks, km = kseg.seg_abs_sum_max(x2d, geom)
         ps, pm = plain_stats(x2d, geom)
         kc = kseg.seg_count_gt(x2d, geom, thr)
         pc = plain_count(x2d, geom, thr)
-        kv, ki, kn = kseg.seg_compact_gt(x2d, geom, thr, cap)
-        pv, pi, pn = plain_compact(x2d, geom, thr, cap)
         torch.cuda.synchronize()
         ok = {"seg_abs_sum_max": same_bits(ks, ps) and same_bits(km, pm),
-              "seg_count_gt": same_bits(kc, pc),
-              "seg_compact_gt": (same_bits(kv, pv) and same_bits(ki, pi)
-                                 and same_bits(kn, pn))}
+              "seg_count_gt": same_bits(kc, pc), "seg_compact_gt": True}
         err["seg_abs_sum_max"] = max(
             err["seg_abs_sum_max"], float((ks - ps).abs().max()),
             float((km - pm).abs().max()))
         err["seg_count_gt"] = max(err["seg_count_gt"],
                                   float((kc - pc).abs().max()))
-        err["seg_compact_gt"] = max(
-            err["seg_compact_gt"], float((kv - pv).abs().max()),
-            float((ki - pi).abs().max()), float((kn - pn).abs().max()))
+        over = []
+        for cap in caps:
+            kv, ki, kn = kseg.seg_compact_gt(x2d, geom, thr, cap)
+            pv, pi, pn = plain_compact(x2d, geom, thr, cap)
+            torch.cuda.synchronize()
+            ok["seg_compact_gt"] &= (same_bits(kv, pv) and same_bits(ki, pi)
+                                     and same_bits(kn, pn))
+            err["seg_compact_gt"] = max(
+                err["seg_compact_gt"], float((kv - pv).abs().max()),
+                float((ki - pi).abs().max()), float((kn - pn).abs().max()))
+            over.append(f"{int((kn > cap).sum())} at cap {cap}")
+            del kv, ki, kn, pv, pi, pn
         print(f"[kernels] {name}: " + ", ".join(
             f"{k} {'equal' if v else 'DIFFERS'}" for k, v in ok.items())
-            + f"; rows with overflow {int((kn > cap).sum())}")
+            + f"; rows over the cap {', '.join(over)} (of "
+            f"{geom.nblocks:,})")
         if not all(ok.values()):
             _fail(f"kernel differs from its plain twin on {name}")
 
@@ -313,6 +352,13 @@ def phase_kernels(results: dict) -> None:
         results[name] = time_kernel(name, kern, plain, nbytes, ops)
         results[name].update(replaces=replaces[name],
                              max_abs_err=err[name])
+    # the same compaction where the survivors crowd 2% of the rows
+    nbytes, ops = timing["seg_compact_gt"][2:]
+    time_kernel("seg_compact_gt crowded",
+                lambda: kseg.seg_compact_gt(x_crowd, geom, thr_full, 16),
+                lambda: plain_compact(x_crowd, geom, thr_full, 16),
+                nbytes, ops)
+    del x_crowd
 
     # Why the exact count keeps its own kernel: count_gt_strided with every
     # stride 1 counts the same, timed here against count_gt on this arena.
@@ -486,8 +532,8 @@ def _full_width_leaf(n: int, gen):
 
 def phase_leaf_kernels(results: dict) -> None:
     """The per-leaf kernels against their twins, bitwise, on the
-    full-width leaves (15M and 9M elements), on ragged tied leaves and on
-    a misaligned view, and the exact compaction and the statistics also on
+    full-width leaves (15M and 9M elements), plain and crowded, on ragged
+    tied leaves and on misaligned views, and the exact compaction and the statistics also on
     slots of the full-width arena (the views ``multi_select`` gives them
     after a bucket overflow); then their times at full width."""
     import torch
@@ -507,29 +553,43 @@ def phase_leaf_kernels(results: dict) -> None:
                              device=dev).to(torch.float32) * 0.5
 
     full = {n: _full_width_leaf(n, gen) for n in (15_000_000, 9_000_000)}
-    cases = [(f"full-width n={n:,}", x, (3.0, 0.0),
-              _cap_for(2 * math.ceil(0.001 * n), -(-n // 1024), 1024),
-              2 * math.ceil(0.001 * n)) for n, x in full.items()]
-    cases += [(f"ragged tied n={n}", tied(n), (1.0, 0.0), 8, 50)
+    # the survivors crowd 2% of the rows, wholly above the threshold
+    crowd = {n: _crowded(x, [_band(0, -(-n // 1024))])
+             for n, x in full.items()}
+    # the main path's cap (_cap_for: 16), one slot, every survivor
+    cases = [(f"full-width{kind} n={n:,}", x, (3.0, 0.0),
+              (_cap_for(2 * math.ceil(0.001 * n), -(-n // 1024), 1024), 1,
+               1024), 2 * math.ceil(0.001 * n))
+             for kind, leaves in (("", full), (" crowded", crowd))
+             for n, x in leaves.items()]
+    cases += [(f"ragged tied n={n}", tied(n), (1.0, 0.0), (8,), 50)
               for n in LEAF_RAGGED]
-    cases.append(("misaligned n=5000", tied(5001)[1:], (1.0, 0.0), 8, 50))
+    cases.append(("misaligned n=5000", tied(5001)[1:], (1.0, 0.0),
+                  (8, 1, 1024), 50))
+    cases.append(("misaligned n=4999", tied(5001)[2:], (1.0, 0.0),
+                  (8, 1, 1024), 50))
     err = {k: 0.0 for k in LEAF_REPLACES}
-    for label, x, thrs, cap, msg in cases:
+    for label, x, thrs, caps, msg in cases:
         ok = {k: True for k in LEAF_REPLACES}
         overflow_rows = []
         n = x.numel()
         for thr in thrs:
             t = torch.tensor(thr, device=dev)
             kc, pc = threshold_count.count_gt(x, t), twin["count_gt"](x, t)
-            kb, pb = compact.compact_gt(x, t, cap), twin["compact_gt"](x, t,
-                                                                       cap)
-            torch.cuda.synchronize()
             ok["count_gt"] &= same_bits(kc, pc)
-            ok["compact_gt"] &= all(same_bits(a, b) for a, b in zip(kb, pb))
             err["count_gt"] = max(err["count_gt"], max_err(kc, pc))
-            err["compact_gt"] = max(err["compact_gt"],
-                                    *(max_err(a, b) for a, b in zip(kb, pb)))
-            overflow_rows.append(int((kb[2] > cap).sum()))
+            for cap in caps:
+                kb = compact.compact_gt(x, t, cap)
+                pb = twin["compact_gt"](x, t, cap)
+                torch.cuda.synchronize()
+                ok["compact_gt"] &= all(same_bits(a, b)
+                                        for a, b in zip(kb, pb))
+                err["compact_gt"] = max(
+                    err["compact_gt"],
+                    *(max_err(a, b) for a, b in zip(kb, pb)))
+                if cap == caps[0]:
+                    overflow_rows.append(int((kb[2] > cap).sum()))
+                del kb, pb
             # the exact form at one slot, the filter's capacity, every
             # survivor, and the whole leaf (padding after the survivors)
             for capacity in sorted({1, min(n, msg), min(n, int(kc)) or 1,
@@ -559,8 +619,8 @@ def phase_leaf_kernels(results: dict) -> None:
         torch.cuda.synchronize()
         print(f"[leaf] {label}: " + ", ".join(
             f"{k} {'equal' if v else 'DIFFERS'}" for k, v in ok.items())
-            + f"; cap {cap}, rows over cap at thresholds {thrs}: "
-            f"{overflow_rows}")
+            + f"; caps {caps}, rows over cap {caps[0]} at thresholds "
+            f"{thrs}: {overflow_rows} of {-(-n // 1024):,}")
         if not all(ok.values()):
             _fail(f"a per-leaf kernel differs from its twin on {label}")
 
@@ -631,6 +691,14 @@ def phase_leaf_kernels(results: dict) -> None:
                 row.update(name=name, replaces=LEAF_REPLACES[name],
                            max_abs_err=err[name])
                 results[name] = row
+        # the bucketed compaction where the survivors crowd 2% of the rows
+        xc = crowd[n]
+        over = int((compact.compact_gt(xc, t, cap)[2] > cap).sum())
+        time_kernel(f"compact_gt crowded n={n:,} ({over:,} of {nb:,} rows "
+                    f"over cap {cap})",
+                    lambda: compact.compact_gt(xc, t, cap),
+                    lambda: twin["compact_gt"](xc, t, cap),
+                    *timing["compact_gt"][2:4], source="leaf.cu")
         # abs_sum_max at other column splits than block_stats.split's 2^13:
         # the same bits, other launch shapes (2^(logm - 5) blocks)
         want = twin["abs_sum_max"](x)

@@ -7,7 +7,8 @@ as (value, global index), pads the bucket with ``(0.0, n)`` and reports
 the row's count before clamping, so the caller sees a bucket overflow.
 For a CPU tensor it runs the plain twin ``ref.compact_gt`` on the
 reference's zero-padded ``[nb, 1024]`` view; for a CUDA tensor it
-launches ``compact_gt_leaf`` (``csrc/leaf.cu``); anything else raises.
+launches ``compact_gt_leaf`` (``csrc/leaf.cu``: one warp per row, float4
+loads when the leaf is 16-byte aligned); anything else raises.
 
 ``compact_gt_exact`` is its exact form, for a leaf whose buckets
 overflowed: it writes the first ``capacity`` survivors of the whole leaf,
@@ -33,7 +34,7 @@ EXACT_TILE = 8192   # elements per tile of compact_gt_exact_leaf (leaf.cu)
 def _fn():
     from .build import load
     fn = load("leaf").compact_gt_launch
-    fn.argtypes = [P, L, P, I, P, P, P, P]
+    fn.argtypes = [P, L, I, P, I, P, P, P, P]
     fn.restype = I
     return fn
 
@@ -66,7 +67,7 @@ def compact_gt(x: torch.Tensor, threshold: torch.Tensor, cap_per_block: int
     idx = torch.empty((nb, cap_per_block), dtype=torch.int32,
                       device=x.device)
     cnt = torch.empty(nb, dtype=torch.int32, device=x.device)
-    rc = _fn()(x.data_ptr(), n, thr.data_ptr(), cap_per_block,
+    rc = _fn()(x.data_ptr(), n, aligned(x), thr.data_ptr(), cap_per_block,
                vals.data_ptr(), idx.data_ptr(), cnt.data_ptr(), stream())
     raise_on(rc, "compact_gt")
     launches["compact_gt"] += 1

@@ -1,7 +1,7 @@
 // Device code shared by segmented.cu (the flat-arena kernels) and leaf.cu
 // (the per-leaf kernels): the pinned summation tree of selection.pinned_sum
-// as column folds, and the in-row survivor ranking of the bucketed
-// compaction. Included by both sources; each library gets its own copy.
+// as column folds, and the bucketed compaction of one row by one warp.
+// Included by both sources; each library gets its own copy.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,31 +92,79 @@ __device__ __forceinline__ void finish_partials(int logc,
   }
 }
 
-// In a block of ROW threads, one per element of a row: the rank of this
-// thread's flag m among the row's set flags in element order (a warp
-// ballot/popc prefix plus the prefix of the warp totals), with the row's
-// total in `total`. Every thread of the block must call it.
-__device__ __forceinline__ int row_rank(bool m, int& total) {
-  __shared__ int wpre[ROW / 32];
-  __shared__ int total_s;
+// ---- the bucketed compaction, one warp per row ---------------------------
+// A warp owns one ROW-element row. Lane l holds the row's elements
+// j*128 + 4*l + c (step j < CR_VEC, component c < 4), so each of the warp's
+// CR_VEC float4 loads covers 512 contiguous bytes, and keeps only their
+// survivor flags, bit 4*j + c of one 32-bit word. Element order is
+// (j, lane, c). Used by seg_compact_gt (segmented.cu) and compact_gt
+// (leaf.cu).
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int CR_VEC = ROW / 128;          // float4 loads per lane and row
+constexpr int CR_THREADS = 256;            // a block takes eight rows
+constexpr int CR_ROWS = CR_THREADS / 32;
+
+// The flags of v = the row's elements e .. e+3: |v| > t and position < lim.
+__device__ __forceinline__ unsigned gt_bits4(float4 v, float t, int e,
+                                             int lim) {
+  return static_cast<unsigned>(e < lim && fabsf(v.x) > t) |
+         static_cast<unsigned>(e + 1 < lim && fabsf(v.y) > t) << 1 |
+         static_cast<unsigned>(e + 2 < lim && fabsf(v.z) > t) << 2 |
+         static_cast<unsigned>(e + 3 < lim && fabsf(v.w) > t) << 3;
+}
+
+// The row's bucket from the lanes' flags (bits): its first cap survivors
+// in element order as (xr[e], first + e), then (0, pad) up to cap, and its
+// pre-clamp count in *cnt. A survivor's rank is the row's survivors in
+// earlier steps (warp-uniform), plus those of the lanes before it in its
+// step (a ballot per component, popc below the lane), plus its own earlier
+// components. Survivors are few, so their values are read again here
+// rather than held in registers across the ballots. No shared memory and
+// no block barrier: every lane of the warp calls this, and the other warps
+// of the block never wait for it.
+__device__ __forceinline__ void warp_bucket(unsigned bits,
+                                            const float* __restrict__ xr,
+                                            int first, int pad, int cap,
+                                            float* __restrict__ vr,
+                                            int* __restrict__ ir,
+                                            int* __restrict__ cnt) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned bal = __ballot_sync(0xffffffffu, m);
-  if (lane == 0) wpre[warp] = __popc(bal);
-  __syncthreads();
-  if (warp == 0) {
-    const int own = wpre[lane];
-    int inc = own;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc += y;
+  const unsigned lower = (1u << lane) - 1u;
+  const int total = static_cast<int>(__reduce_add_sync(FULL, __popc(bits)));
+  int done = 0;   // the row's survivors in the steps before j
+#pragma unroll
+  for (int j = 0; j < CR_VEC; ++j) {
+    if (done >= cap) break;   // warp-uniform: the bucket is full
+    const unsigned mj = (bits >> (4 * j)) & 15u;
+    if (!__any_sync(FULL, mj)) continue;
+    int pre = 0, tot = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned bal = __ballot_sync(FULL, (mj >> c) & 1u);
+      tot += __popc(bal);
+      pre += __popc(bal & lower);
     }
-    wpre[lane] = inc - own;
-    if (lane == 31) total_s = inc;
+    int p = done + pre;
+    if (mj && p < cap) {
+      const int e = j * 128 + 4 * lane;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if ((mj >> c) & 1u) {
+          if (p < cap) {
+            vr[p] = xr[e + c];
+            ir[p] = first + e + c;
+          }
+          ++p;
+        }
+      }
+    }
+    done += tot;
   }
-  __syncthreads();
-  total = total_s;
-  return wpre[warp] + __popc(bal & ((1u << lane) - 1u));
+  for (int q = (total < cap ? total : cap) + lane; q < cap; q += 32) {
+    vr[q] = 0.f;
+    ir[q] = pad;
+  }
+  if (lane == 0) *cnt = total;
 }
 
 }  // namespace

@@ -16,12 +16,13 @@
 // the 15M-element embedding / softmax leaves of the paper's LSTM, 36 MB for
 // a 9M-element gate matrix) at ~1 op per element; the residual update moves
 // five f32 streams (g, U, V in; U', V' out). At 3.35 TB/s that is 18 / 11
-// us per pass and 90 / 54 us for the update. count_gt, compact_gt and the
-// update are the simple designs: float4 loads where the pointers allow, a
-// grid-stride loop sized to the card, one integer atomic per block.
-// abs_sum_max and compact_gt_exact are redesigned for this card (the
-// comments above each say how): many float4 loads in flight per thread and
-// one launch each, with no second pass over the leaf or its partials.
+// us per pass and 90 / 54 us for the update. count_gt and the update are
+// the simple designs: float4 loads where the pointers allow, a grid-stride
+// loop sized to the card, one integer atomic per block. abs_sum_max,
+// compact_gt and compact_gt_exact are redesigned for this card (the
+// comments above each say how): 8 float4 loads in flight per thread before
+// any is used, survivors ranked by ballots inside a warp, and one launch
+// each, with no second pass over the leaf or its partials.
 //
 // Numerics follow the reference's default jnp backend, not the Pallas
 // bodies: abs_sum_max's sum is selection.pinned_sum's halving tree over the
@@ -37,7 +38,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLOCKS = 132 * 8;   // H100: 132 SMs, 8 blocks of 256 each
-constexpr unsigned FULL = 0xffffffffu;
 
 int grid_for(long long work) {
   long long b = (work + THREADS - 1) / THREADS;
@@ -288,35 +288,50 @@ abs_sum_max_leaf(const float* __restrict__ x, unsigned n, int vec, int logm,
   }
 }
 
-// One block per 1024-element row of the leaf, one thread per element. A
-// survivor's rank in its row is row_rank's ballot/popc prefix; survivors
-// with rank < cap are stored as (x, global index). Unfilled bucket slots
-// get (0, n); cnt is the row's count before clamping. Positions >= n (the
-// last row's ragged tail) are never survivors and are not read.
-__global__ void __launch_bounds__(ROW)
-compact_gt_leaf(const float* __restrict__ x, long long n,
+// ---- compact_gt ----------------------------------------------------------
+// Per 1024-element row of the leaf, the first cap survivors as (x, global
+// index), padded with (0, n), and the row's count before clamping. One warp
+// per row, eight rows per block (warp_bucket, common.cuh): each lane issues
+// its 8 float4 loads of the row (streaming, evict-first) before it uses
+// any, so a warp has 4 KB in flight, and ranks the survivors by ballots
+// inside the warp. The old design (one 1024-thread block per row, scalar
+// loads, two block barriers and a serial scan of the warp totals) kept at
+// most 8 KB of loads in flight per SM. A leaf that is not 16-byte aligned,
+// and the ragged last row, take scalar loads; positions >= n are neither
+// read nor counted.
+__global__ void __launch_bounds__(CR_THREADS, 6)
+compact_gt_leaf(const float* __restrict__ x, long long n, int vec,
                 const float* __restrict__ thr, int cap, float* __restrict__ vals,
                 int* __restrict__ idx, int* __restrict__ cnt) {
-  const int row = blockIdx.x;
-  const int col = threadIdx.x;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * CR_ROWS + (threadIdx.x >> 5);
+  const long long r0 = row * ROW;
+  if (r0 >= n) return;   // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const float* xr = x + r0;
+  const int lim = n - r0 < ROW ? static_cast<int>(n - r0) : ROW;
   const float t = *thr;
-  const long long g = static_cast<long long>(row) * ROW + col;
-  const float v = g < n ? x[g] : 0.f;
-  const bool m = g < n && fabsf(v) > t;
-  int total;
-  const int pos = row_rank(m, total);
-  float* vr = vals + static_cast<long long>(row) * cap;
-  int* ir = idx + static_cast<long long>(row) * cap;
-  if (m && pos < cap) {
-    vr[pos] = v;
-    ir[pos] = static_cast<int>(g);
+  unsigned bits = 0;
+  if (vec && lim == ROW) {
+    float4 v[CR_VEC];
+#pragma unroll
+    for (int j = 0; j < CR_VEC; ++j)
+      v[j] = __ldcs(reinterpret_cast<const float4*>(xr + j * 128) + lane);
+#pragma unroll
+    for (int j = 0; j < CR_VEC; ++j)
+      bits |= gt_bits4(v[j], t, j * 128 + 4 * lane, ROW) << (4 * j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CR_VEC; ++j) {
+      const int e = j * 128 + 4 * lane;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        bits |= static_cast<unsigned>(e + c < lim && fabsf(xr[e + c]) > t)
+                << (4 * j + c);
+    }
   }
-  const int filled = total < cap ? total : cap;
-  if (col >= filled && col < cap) {
-    vr[col] = 0.f;
-    ir[col] = static_cast<int>(n);
-  }
-  if (col == 0) cnt[row] = total;
+  warp_bucket(bits, xr, static_cast<int>(r0), static_cast<int>(n), cap,
+              vals + row * cap, idx + row * cap, cnt + row);
 }
 
 // ---- compact_gt_exact ----------------------------------------------------
@@ -606,11 +621,13 @@ int abs_sum_max_launch(const float* x, long long n, int vec, int logp,
   return static_cast<int>(cudaGetLastError());
 }
 
-int compact_gt_launch(const float* x, long long n, const float* thr, int cap,
-                      float* vals, int* idx, int* cnt, void* stream) {
-  const int nb = static_cast<int>((n + ROW - 1) / ROW);
-  compact_gt_leaf<<<nb, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, n, thr, cap, vals, idx, cnt);
+// vec: x is 16-byte aligned (float4 loads).
+int compact_gt_launch(const float* x, long long n, int vec, const float* thr,
+                      int cap, float* vals, int* idx, int* cnt, void* stream) {
+  const long long nb = (n + ROW - 1) / ROW;
+  const int blocks = static_cast<int>((nb + CR_ROWS - 1) / CR_ROWS);
+  compact_gt_leaf<<<blocks, CR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, n, vec, thr, cap, vals, idx, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 

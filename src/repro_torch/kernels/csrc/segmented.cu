@@ -22,7 +22,9 @@
 // each segment's [::stride] samples (1/512 of a large slot); at that size
 // launch latency and 32-byte sectors, not bandwidth, set their time. The
 // fused residual update moves five or six f32 streams (g, V, U, p in; V',
-// U' out). The designs below are the simple ones; speed work comes later.
+// U' out). seg_compact_gt is redesigned for this card (one warp per row,
+// all of a row's loads in flight before any is used, ranks by ballots
+// inside the warp); the others are the first, simple designs.
 //
 // Numerics follow the reference's default jnp backend, not the Pallas
 // bodies: the sums reproduce selection.pinned_sum bitwise (see
@@ -231,37 +233,40 @@ resid_colfold(Accum acc, const long long* __restrict__ seg_off,
   part_max[static_cast<long long>(s) * cmax + i] = mx;
 }
 
-// One block per arena row, one thread per element. The survivor's rank in
-// the row is a warp ballot/popc prefix plus the prefix of the warp totals;
-// survivors with rank < cap are stored directly (the TPU's cumsum and
-// one-hot matmul existed only because it has no scatter). Unfilled bucket
-// slots get value 0 and index == slot size; cnt is the pre-clamp count.
-__global__ void __launch_bounds__(ROW)
+// Per arena row, the first cap survivors of |x| > thr[block_seg[row]] at
+// slot-local index < slot size, as (x, slot-local index), padded with
+// (0, slot size), and the row's count before clamping. One warp per row,
+// eight rows per block (warp_bucket, common.cuh): each lane issues its 8
+// float4 loads of the row (streaming, evict-first) first, then the row's
+// maps and its slot's threshold, so the dependent block_seg -> thr chain
+// waits while the row's 4 KB are in flight. The old design (one 1024-thread
+// block per row, scalar loads, two block barriers and a serial scan of the
+// warp totals) kept at most 8 KB of loads in flight per SM. Arena rows are
+// whole, zero-padded rows, so every row takes float4 loads; positions past
+// the slot's end are masked.
+__global__ void __launch_bounds__(CR_THREADS, 6)
 compact_gt(const float* __restrict__ x, const int* __restrict__ block_seg,
            const int* __restrict__ block_base, const int* __restrict__ block_size,
-           const float* __restrict__ thr, int cap, float* __restrict__ vals,
-           int* __restrict__ idx, int* __restrict__ cnt) {
-  const int row = blockIdx.x;
-  const int col = threadIdx.x;
-  const float t = thr[block_seg[row]];
+           const float* __restrict__ thr, int nb, int cap,
+           float* __restrict__ vals, int* __restrict__ idx,
+           int* __restrict__ cnt) {
+  const int row = blockIdx.x * CR_ROWS + (threadIdx.x >> 5);
+  if (row >= nb) return;   // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const float* xr = x + static_cast<long long>(row) * ROW;
+  float4 v[CR_VEC];
+#pragma unroll
+  for (int j = 0; j < CR_VEC; ++j)
+    v[j] = __ldcs(reinterpret_cast<const float4*>(xr + j * 128) + lane);
+  const int base = block_base[row];
   const int size = block_size[row];
-  const int lidx = block_base[row] + col;
-  const float v = x[static_cast<long long>(row) * ROW + col];
-  const bool m = (fabsf(v) > t) && (lidx < size);
-  int total;
-  const int pos = row_rank(m, total);
-  float* vr = vals + static_cast<long long>(row) * cap;
-  int* ir = idx + static_cast<long long>(row) * cap;
-  if (m && pos < cap) {
-    vr[pos] = v;
-    ir[pos] = lidx;
-  }
-  const int filled = total < cap ? total : cap;
-  if (col >= filled && col < cap) {
-    vr[col] = 0.f;
-    ir[col] = size;
-  }
-  if (col == 0) cnt[row] = total;
+  const float t = thr[block_seg[row]];
+  unsigned bits = 0;
+#pragma unroll
+  for (int j = 0; j < CR_VEC; ++j)
+    bits |= gt_bits4(v[j], t, j * 128 + 4 * lane, size - base) << (4 * j);
+  const long long out = static_cast<long long>(row) * cap;
+  warp_bucket(bits, xr, base, size, cap, vals + out, idx + out, cnt + row);
 }
 
 }  // namespace
@@ -331,8 +336,9 @@ int seg_compact_gt_launch(const float* x, const int* block_seg,
                           const int* block_base, const int* block_size,
                           const float* thr, int nb, int cap, float* vals,
                           int* idx, int* cnt, void* stream) {
-  compact_gt<<<nb, ROW, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, block_seg, block_base, block_size, thr, cap, vals, idx, cnt);
+  compact_gt<<<(nb + CR_ROWS - 1) / CR_ROWS, CR_THREADS, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      x, block_seg, block_base, block_size, thr, nb, cap, vals, idx, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 

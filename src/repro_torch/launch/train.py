@@ -70,7 +70,10 @@ def main(argv: list[str] | None = None) -> None:
 
 def profile_steps(trainer, state, batches, n: int) -> None:
     """Run ``n`` steps under ``torch.profiler``; print device time per
-    kernel (top 15) and the device's busy share of the steps' wall time."""
+    kernel (the top 15, then every other kernel in an anonymous
+    namespace, which holds all of ``kernels/csrc`` and a few of
+    PyTorch's) and the device's busy share of the steps' wall time."""
+    import re
     import time
 
     import torch
@@ -94,9 +97,10 @@ def profile_steps(trainer, state, batches, n: int) -> None:
     print(f"profile: {n} steps, wall {wall * 1e3:.2f} ms, device busy "
           f"{busy * 1e3:.2f} ms ({busy / wall:.1%}), idle "
           f"{1 - busy / wall:.1%}")
-    for e in events[:15]:
-        print(f"profile: {e.self_device_time_total / 1e3 / n:10.3f} ms/step "
-              f"{e.count / n:7.1f} calls/step  {e.key[:90]}")
+    for i, e in enumerate(events):
+        if i < 15 or re.match(r"(void )?\(anonymous namespace\)::", e.key):
+            print(f"profile: {e.self_device_time_total / 1e3 / n:10.3f} "
+                  f"ms/step {e.count / n:7.1f} calls/step  {e.key[:90]}")
 
 
 if __name__ == "__main__":

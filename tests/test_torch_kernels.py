@@ -461,6 +461,7 @@ def test_cuda_kernels_match_twins():
                                   g.block_size, thr, 8)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+        _check_compaction_on_card(torch, ref, kseg, tied)
         # the strided (sampled) forms and the fused residual update
         ks, km = kseg.seg_abs_sum_max(x, g, STRIDES)
         ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg,
@@ -485,6 +486,29 @@ def test_cuda_kernels_match_twins():
                 if a is not None:
                     assert torch.equal(a.view(torch.int32),
                                        b.view(torch.int32))
+
+
+def _check_compaction_on_card(torch, ref, kseg, tied):
+    """seg_compact_gt against its twin at caps 1 to 1024, on arenas whose
+    slots end mid-row (block_size < block_base + 1024; a negative
+    threshold counts the zero padding unless the kernel masks it) and
+    with two rows crowded wholly above every threshold."""
+    for sizes, ks in ((SIZES, SEG_KS), ((1, 1025, 2047), (1, 3, 20))):
+        group = _port_group(sizes, ks)
+        g = group.geometry
+        assert any(b + 1024 > n for b, n in zip(g.block_base, g.block_size))
+        a = _arena(group, 11, tied)
+        crowd = np.where(a[1:3] < 0, -4.5, np.where(a[1:3] > 0, 4.5, 0.0))
+        a[1:3] = crowd
+        x = torch.from_numpy(a).cuda()
+        for thr in ([1.0, 0.5, 2.0], [-1.0, -1.0, 0.0]):
+            t = torch.tensor(thr, device="cuda")
+            for cap in (1, 8, 16, 1024):
+                got = kseg.seg_compact_gt(x, g, t, cap)
+                want = ref.seg_compact_gt(x, g.block_seg, g.block_base,
+                                          g.block_size, t, cap)
+                for p, q in zip(got, want):
+                    assert torch.equal(p, q)
 
 
 @pytest.mark.cuda

@@ -268,25 +268,32 @@ def test_ops_threshold_filter_matches_jnp(case):
 def test_cuda_leaf_kernels_match_twins():
     """On the card: each per-leaf CUDA kernel against its plain twin on
     the same CUDA tensors, on ragged and tied leaves, with threshold 0
-    (bucket overflow) and a misaligned start: counts, sum and max bits,
-    buckets, the exact compaction at three capacities, and U'/V' with
-    nesterov off and on, all bitwise."""
+    (bucket overflow), a misaligned start (also at a length that is not a
+    multiple of 4) and rows crowded wholly above the threshold: counts,
+    sum and max bits, buckets at caps 1 to 1024, the exact compaction at
+    three capacities, and U'/V' with nesterov off and on, all bitwise."""
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import (block_stats, common, compact, ref,
                                      residual_update, threshold_count)
     before = dict(common.launches)
-    for n, tied in LEAVES + [(70_000, False)]:
-        base = torch.from_numpy(_leaf(n + 1, n, tied)).cuda()
-        for x in (base[:n], base[1:]):           # aligned, misaligned
+    for n, tied in LEAVES + [(4999, False), (70_000, False)]:
+        leaf = _leaf(n + 1, n, tied)
+        crowd = leaf.copy()               # rows 1 and 2 wholly above 4
+        crowd[1024:3072] = np.where(crowd[1024:3072] < 0, -4.5, 4.5)
+        base = torch.from_numpy(leaf).cuda()
+        for x in (base[:n], base[1:],    # aligned, misaligned
+                  torch.from_numpy(crowd).cuda()[:n]):
             for thr in (0.0, 1.0):
                 t = torch.tensor(thr, device="cuda")
                 assert torch.equal(threshold_count.count_gt(x, t),
                                    ref.count_gt(ref.rows(x), t))
-                got = compact.compact_gt(x, t, 8)
-                for a, b in zip(got, ref.compact_gt(ref.rows(x), t, 8, n)):
-                    assert torch.equal(a, b)
+                for cap in (1, 8, 16, 1024):
+                    got = compact.compact_gt(x, t, cap)
+                    for a, b in zip(got, ref.compact_gt(ref.rows(x), t, cap,
+                                                        n)):
+                        assert torch.equal(a, b)
                 for capacity in sorted({1, min(n, 50), n}):
                     for a, b in zip(
                             compact.compact_gt_exact(x, t, capacity),
