@@ -8,29 +8,43 @@
 // block_seg[b]; each slot starts on a row boundary and is zero-padded.
 //
 // Replaces (src/repro/kernels/segmented.py):
-//   seg_abs_sum_max  <- seg_abs_sum_max (:113, _stats_kernel :76 and, with
-//                       a stride per segment, _stats_kernel_strided :91)
+//   seg_abs_sum_max  <- seg_abs_sum_max (:113, _stats_kernel :76)
 //   seg_count_gt     <- seg_count_gt    (:182, _count_kernel :151)
-//   count_gt_strided <- seg_count_gt with stride_b (_count_kernel_strided
+//   stats_sampled    <- seg_abs_sum_max with a stride per segment
+//                       (_stats_kernel_strided :91)
+//   count_sampled    <- seg_count_gt with stride_b (_count_kernel_strided
 //                       :165)
 //   seg_compact_gt   <- seg_compact_gt  (:242, _compact_kernel :219)
 //   resid_colfold    <- seg_residual_update_stats (:328, _resid_kernel :285)
 //
 // Bound: the exact forms stream the arena once (264 MB per pass for the
 // paper's 2-layer 1500-unit LSTM) and do ~1 op per element, so HBM
-// bandwidth bounds them (~79 us at 3.35 TB/s). The strided forms read only
-// each segment's [::stride] samples (1/512 of a large slot); at that size
-// launch latency and 32-byte sectors, not bandwidth, set their time. The
-// fused residual update moves five or six f32 streams (g, V, U, p in; V',
-// U' out). seg_compact_gt is redesigned for this card (one warp per row,
-// all of a row's loads in flight before any is used, ranks by ballots
-// inside the warp); the others are the first, simple designs.
+// bandwidth bounds them (~79 us at 3.35 TB/s). The fused residual update
+// moves five or six f32 streams (g, V, U, p in; V', U' out).
+// seg_compact_gt is redesigned for this card (one warp per row, all of a
+// row's loads in flight before any is used, ranks by ballots inside the
+// warp); the other exact forms are the first, simple designs.
+//
+// The strided forms (stats_sampled, count_sampled) read only each
+// segment's [::stride] samples: ~151K floats for the paper LSTM's sampled
+// arena, nearly all in a 32-byte sector of their own (4.2 MB of sectors,
+// 0.6 MB of useful bytes). Bandwidth does not bound them; a launch and
+// the chain of dependent round trips do: the segment's maps, then its
+// samples, then the reductions. So each is one launch with no scratch and
+// no memset: one thread-block cluster per segment (cudaLaunchKernelEx with
+// a cluster dimension of 8 or 16 blocks), whose blocks split the samples,
+// each thread issuing all of its loads (up to a batch of 8) before it uses
+// any; the blocks' partials meet in rank 0's distributed shared memory
+// behind one blocking cluster wait, and rank 0 stores the segment's result
+// with a plain store. Their floor is an empty launch of the same grid
+// (empty_kernel, launch_floor_launch): ~1.5 us of their ~5 us on the H100.
 //
 // Numerics follow the reference's default jnp backend, not the Pallas
 // bodies: the sums reproduce selection.pinned_sum bitwise (see
 // fold_column); counts and compaction are integer / bit moves. The file is
 // compiled with -fmad=false and the adds use __fadd_rn, so no product is
 // ever contracted into an add.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,35 +118,218 @@ count_gt(const float* __restrict__ x, const int* __restrict__ block_seg,
   }
 }
 
-__device__ __forceinline__ int warp_sum(int c) {
-  for (int off = 16; off; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-  return c;
+// ---- the strided forms: one thread-block cluster per segment -------------
+// Grid (cs, n_seg), cluster (cs, 1, 1): the cs blocks of cluster s split
+// segment s's samples. Each block arrives (relaxed) at the cluster barrier
+// as it starts and waits on it only once its own partial is ready, which
+// proves rank 0 resident; it then stores the partial into rank 0's shared
+// memory (distributed shared memory), arrives again with release
+// semantics and exits. Only rank 0 waits for that second phase, so no
+// block stays resident for another's reads and the one blocking wait is
+// rank 0's.
+namespace cg = cooperative_groups;
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The sampled count. Segment s's stride grid (col % stride == 0 in each of
-// its rows) is the slot-local vector of positions e * stride, e < pad /
-// stride, padding included as the twin counts it. Blocks (x, s) walk that
-// vector, one sample per thread and step, so only grid positions are
-// loaded and a warp's loads are in flight together; each warp then adds
-// its count with one integer atomicAdd (order-free, so exact).
-constexpr int COUNT_THREADS = 256;
-constexpr int COUNT_MAX_BLOCKS = 256;   // per segment; the rest loops
+constexpr int SAMPLE_THREADS = 256;   // per block
+constexpr int SAMPLE_WARPS = SAMPLE_THREADS / 32;
+constexpr int SAMPLE_BATCH = 8;       // loads a thread issues before using any
 
-__global__ void __launch_bounds__(COUNT_THREADS)
-count_gt_strided(const float* __restrict__ x, const long long* __restrict__ seg_off,
-                 const int* __restrict__ seg_stride, const int* __restrict__ seg_pad,
-                 const float* __restrict__ thr, int* __restrict__ out) {
+__host__ __device__ constexpr int log2_of(int v) {
+  return v > 1 ? 1 + log2_of(v / 2) : 0;
+}
+
+// fold_column for any R = 2^logr: below 8 rows the R loads are issued
+// together and the column is summed as an 8-row tree whose missing rows
+// are +0 (x + 0 = x for the sums of |x|, so the bits are the R-row tree's).
+template <class Load>
+__device__ __forceinline__ void fold_rows(int logr, Load load, float& sum,
+                                          float& mx) {
+  if (logr >= 3) {
+    fold_column(logr, load, sum, mx);
+    return;
+  }
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v[u] = u < (1 << logr) ? load(bitrev(u, logr)) : 0.f;
+  mx = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) mx = fmaxf(mx, v[u]);
+  sum = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
+                  __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
+}
+
+// seg_abs_sum_max with a stride per segment, in one launch. Segment s's n
+// sampled elements (element e at slot position e * stride), zero-padded to
+// P = next_pow2(n), are viewed as [R, C] with C = the cluster's CS * 256
+// threads (a pinned tree over P padded further with zeros has the same
+// bits, so C may exceed P) and R = max(1, P / C). Column i belongs to
+// thread tid of block rank with i = tid * CS + rank, so the tree's levels
+// after the column folds (pairs i, i + h for h = C/2 .. 1) first pair
+// threads of one block (h >= CS: across warps, then inside a warp by
+// shuffles) and last the cluster's blocks (h < CS: ranks r, r + h).
+template <int CS>
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+stats_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off,
+              const int* __restrict__ seg_n, const int* __restrict__ seg_stride,
+              float* __restrict__ out_sum, float* __restrict__ out_max) {
+  constexpr int LOG_C = log2_of(CS * SAMPLE_THREADS);
+  __shared__ float wsum[SAMPLE_WARPS][32];
+  __shared__ float wmax[SAMPLE_WARPS][32];
+  __shared__ float red[2][CS];   // rank 0's: the blocks' (sum, max)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int s = blockIdx.y;
-  const int st = seg_stride[s];
-  const int grid_n = seg_pad[s] / st;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = threadIdx.x * CS + rank;
+  const int n = seg_n[s];
+  const long long st = seg_stride[s];
+  const float* base = x + seg_off[s];
+  const int logp = n > 1 ? 32 - __clz(n - 1) : 0;
+  float sum, mx;
+  fold_rows(logp > LOG_C ? logp - LOG_C : 0, [&](int t) {
+    const long long e = (static_cast<long long>(t) << LOG_C) + i;
+    return e < n ? fabsf(base[e * st]) : 0.f;
+  }, sum, mx);
+  // the block's levels: across warps (tid, tid + 32 h'), then the lanes
+  wsum[w][lane] = sum;
+  wmax[w][lane] = mx;
+  __syncthreads();
+  if (w == 0) {
+    float a[SAMPLE_WARPS];
+#pragma unroll
+    for (int q = 0; q < SAMPLE_WARPS; ++q) {
+      a[q] = wsum[q][lane];
+      mx = fmaxf(mx, wmax[q][lane]);
+    }
+#pragma unroll
+    for (int h = SAMPLE_WARPS / 2; h; h >>= 1)
+#pragma unroll
+      for (int q = 0; q < h; ++q) a[q] = __fadd_rn(a[q], a[q + h]);
+    sum = a[0];
+    for (int off = 16; off; off >>= 1) {
+      sum = __fadd_rn(sum, __shfl_down_sync(FULL, sum, off));
+      mx = fmaxf(mx, __shfl_down_sync(FULL, mx, off));
+    }
+  }
+  cluster_wait();
+  if (threadIdx.x == 0) {
+    float (*r0)[CS] = cluster.map_shared_rank(red, 0);
+    r0[0][rank] = sum;
+    r0[1][rank] = mx;
+  }
+  cluster_arrive_release();
+  if (rank != 0) return;
+  cluster_wait();
+  // the cluster's levels: rank r's partial in lane r (lanes >= CS add +0)
+  if (w == 0) {
+    float a = lane < CS ? red[0][lane] : 0.f;
+    float m = lane < CS ? red[1][lane] : 0.f;
+    for (int off = 16; off; off >>= 1) {
+      a = __fadd_rn(a, __shfl_down_sync(FULL, a, off));
+      m = fmaxf(m, __shfl_down_sync(FULL, m, off));
+    }
+    if (lane == 0) {
+      out_sum[s] = a;
+      out_max[s] = m;
+    }
+  }
+}
+
+// seg_count_gt with a stride per segment, in one launch. Segment s's stride
+// grid is the slot-local vector of positions e * stride, e < pad / stride,
+// padding included as the twin counts it. The cluster's threads take
+// positions CS * 256 apart, each issuing a batch of 8 loads before counting
+// any; the count is reduced in the warp, the block and then, through
+// distributed shared memory, the cluster (integer adds: order-free).
+template <int CS>
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+count_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off,
+              const int* __restrict__ seg_stride, const int* __restrict__ seg_pad,
+              const float* __restrict__ thr, int* __restrict__ out) {
+  constexpr int CT = CS * SAMPLE_THREADS;
+  __shared__ int wcnt[SAMPLE_WARPS];
+  __shared__ int red[CS];   // rank 0's: the blocks' counts
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.y;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long st = seg_stride[s];
+  const int grid_n = seg_pad[s] / static_cast<int>(st);
   const float t = thr[s];
   const float* base = x + seg_off[s];
   int c = 0;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < grid_n;
-       e += gridDim.x * blockDim.x)
-    c += fabsf(base[static_cast<long long>(e) * st]) > t;
-  c = warp_sum(c);
-  if ((threadIdx.x & 31) == 0 && c) atomicAdd(out + s, c);
+  for (int e0 = rank * SAMPLE_THREADS + threadIdx.x; e0 < grid_n;
+       e0 += SAMPLE_BATCH * CT) {
+    float v[SAMPLE_BATCH];
+#pragma unroll
+    for (int u = 0; u < SAMPLE_BATCH; ++u) {
+      const int e = e0 + u * CT;
+      v[u] = e < grid_n ? base[e * st] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SAMPLE_BATCH; ++u)
+      c += (e0 + u * CT < grid_n) & (fabsf(v[u]) > t);
+  }
+  c = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(c)));
+  if (lane == 0) wcnt[w] = c;
+  __syncthreads();
+  if (w == 0)
+    c = static_cast<int>(__reduce_add_sync(
+        FULL, static_cast<unsigned>(lane < SAMPLE_WARPS ? wcnt[lane] : 0)));
+  cluster_wait();
+  if (threadIdx.x == 0) cluster.map_shared_rank(red, 0)[rank] = c;
+  cluster_arrive_release();
+  if (rank != 0) return;
+  cluster_wait();
+  if (w == 0) {
+    c = static_cast<int>(__reduce_add_sync(
+        FULL, static_cast<unsigned>(lane < CS ? red[lane] : 0)));
+    if (lane == 0) out[s] = c;
+  }
+}
+
+// The launch floor: a kernel that does nothing, launched as the strided
+// forms are (or as one plain block).
+__global__ void empty_kernel(int) {}
+
+// Launch kernel on grid (cs, n_y) in clusters of cs blocks of
+// SAMPLE_THREADS threads; returns the launch's error (0 = launched).
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int cs, int n_y,
+                    cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, n_y, 1);
+  cfg.blockDim = dim3(SAMPLE_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Clusters of 16 are beyond the portable 8: the kernel must opt in, once
+// (outside any stream capture: the first call of each entry point is).
+template <class... Params>
+cudaError_t allow_16(void (*kernel)(Params...)) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // Alg 4 lines 8-19 on one arena element k, exactly as the plain twin
@@ -300,16 +497,50 @@ int seg_count_gt_launch(const float* x, const int* block_seg, const float* thr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The strided forms take cluster = 8 or 16 (blocks per segment); each is
+// one launch and writes every output element with a plain store.
+int seg_abs_sum_max_strided_launch(const float* x, const long long* seg_off,
+                                   const int* seg_n, const int* seg_stride,
+                                   int n_seg, int cluster, float* out_sum,
+                                   float* out_max, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster == 8)
+    return launch_clusters(stats_sampled<8>, 8, n_seg, st, x, seg_off, seg_n,
+                           seg_stride, out_sum, out_max);
+  if (cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t allowed = allow_16(stats_sampled<16>);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  return launch_clusters(stats_sampled<16>, 16, n_seg, st, x, seg_off, seg_n,
+                         seg_stride, out_sum, out_max);
+}
+
 int seg_count_gt_strided_launch(const float* x, const long long* seg_off,
                                 const int* seg_stride, const int* seg_pad,
-                                const float* thr, int n_seg, int grid_max,
+                                const float* thr, int n_seg, int cluster,
                                 int* out, void* stream) {
-  int bx = (grid_max + COUNT_THREADS - 1) / COUNT_THREADS;
-  bx = bx < COUNT_MAX_BLOCKS ? (bx > 0 ? bx : 1) : COUNT_MAX_BLOCKS;
-  const dim3 grid(bx, n_seg);
-  count_gt_strided<<<grid, COUNT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, seg_off, seg_stride, seg_pad, thr, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster == 8)
+    return launch_clusters(count_sampled<8>, 8, n_seg, st, x, seg_off,
+                           seg_stride, seg_pad, thr, out);
+  if (cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t allowed = allow_16(count_sampled<16>);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  return launch_clusters(count_sampled<16>, 16, n_seg, st, x, seg_off,
+                         seg_stride, seg_pad, thr, out);
+}
+
+// The launch floor: empty_kernel on one plain block (cluster 0), or on the
+// strided forms' grid (cluster, n_seg) in clusters of 8 or 16.
+int launch_floor_launch(int n_seg, int cluster, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster == 0) {
+    empty_kernel<<<1, 32, 0, st>>>(0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cluster != 8 && cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t allowed = allow_16(empty_kernel);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  return launch_clusters(empty_kernel, cluster, n_seg, st, 0);
 }
 
 int seg_residual_update_stats_launch(

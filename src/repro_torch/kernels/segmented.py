@@ -65,12 +65,18 @@ __all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
+# Blocks per segment (one thread-block cluster) of the strided forms.
+SAMPLE_CLUSTER = 16
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     from .build import load
     lib = load("segmented")
     lib.seg_abs_sum_max_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _P, _P, _P, _P, _P]
+    lib.seg_abs_sum_max_strided_launch.argtypes = [_P, _P, _P, _P, _I, _I,
+                                                   _P, _P, _P]
     lib.seg_count_gt_launch.argtypes = [_P, _P, _P, _I, _P, _P]
     lib.seg_count_gt_strided_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
                                                  _P, _P]
@@ -79,10 +85,11 @@ def _lib() -> ctypes.CDLL:
         _I, _P, _P, _P, _P, _P]
     lib.seg_compact_gt_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
                                           _P, _P, _P, _P]
-    for fn in (lib.seg_abs_sum_max_launch, lib.seg_count_gt_launch,
-               lib.seg_count_gt_strided_launch,
+    lib.launch_floor_launch.argtypes = [_I, _I, _P]
+    for fn in (lib.seg_abs_sum_max_launch, lib.seg_abs_sum_max_strided_launch,
+               lib.seg_count_gt_launch, lib.seg_count_gt_strided_launch,
                lib.seg_residual_update_stats_launch,
-               lib.seg_compact_gt_launch):
+               lib.seg_compact_gt_launch, lib.launch_floor_launch):
         fn.restype = _I
     return lib
 
@@ -100,7 +107,6 @@ class _DeviceMaps(NamedTuple):
     seg_logc: torch.Tensor    # i32[n_seg] log2 of phase-1 columns
     seg_logr: torch.Tensor    # i32[n_seg] log2 of phase-1 rows
     cmax: int
-    grid_max: int             # most stride-grid positions in one slot
 
 
 def _strides(stride_seg, geom) -> tuple[int, ...] | None:
@@ -137,7 +143,7 @@ def _device_maps(geom, device: torch.device,
                                        np.int64), device=device),
             i32(ns), i32(strides), i32(pads),
             i32(logc), i32([p - c for p, c in zip(logp, logc)]),
-            1 << max(logc), max(p // s for p, s in zip(pads, strides)))
+            1 << max(logc))
     return geom.device_maps[key]
 
 
@@ -168,15 +174,22 @@ def seg_abs_sum_max(x2d: torch.Tensor, geom, stride_seg=None
                                    geom.n_seg, strides)
     _check_launch(x2d, geom, "seg_abs_sum_max")
     m = _device_maps(geom, x2d.device, strides)
-    part = torch.empty((2, geom.n_seg, m.cmax), dtype=torch.float32,
-                       device=x2d.device)
     out = torch.empty((2, geom.n_seg), dtype=torch.float32,
                       device=x2d.device)
-    rc = _lib().seg_abs_sum_max_launch(
-        x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
-        m.seg_stride.data_ptr(), m.seg_logc.data_ptr(),
-        m.seg_logr.data_ptr(), geom.n_seg, m.cmax, part[0].data_ptr(),
-        part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(), _stream())
+    if strides:
+        rc = _lib().seg_abs_sum_max_strided_launch(
+            x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
+            m.seg_stride.data_ptr(), geom.n_seg, SAMPLE_CLUSTER,
+            out[0].data_ptr(), out[1].data_ptr(), _stream())
+    else:
+        part = torch.empty((2, geom.n_seg, m.cmax), dtype=torch.float32,
+                           device=x2d.device)
+        rc = _lib().seg_abs_sum_max_launch(
+            x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
+            m.seg_stride.data_ptr(), m.seg_logc.data_ptr(),
+            m.seg_logr.data_ptr(), geom.n_seg, m.cmax, part[0].data_ptr(),
+            part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            _stream())
     _raise_on(rc, "seg_abs_sum_max")
     launches["seg_abs_sum_max_strided" if strides
              else "seg_abs_sum_max"] += 1
@@ -197,13 +210,16 @@ def seg_count_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
     _check_launch(x2d, geom, "seg_count_gt")
     m = _device_maps(geom, x2d.device, strides)
     thr = thresholds.to(torch.float32).contiguous()
-    out = torch.zeros(geom.n_seg, dtype=torch.int32, device=x2d.device)
     if strides:
+        # one store per segment: no zeroing
+        out = torch.empty(geom.n_seg, dtype=torch.int32, device=x2d.device)
         rc = _lib().seg_count_gt_strided_launch(
             x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
-            m.seg_pad.data_ptr(), thr.data_ptr(), geom.n_seg, m.grid_max,
+            m.seg_pad.data_ptr(), thr.data_ptr(), geom.n_seg, SAMPLE_CLUSTER,
             out.data_ptr(), _stream())
     else:
+        # the exact count adds each row's count with an atomic
+        out = torch.zeros(geom.n_seg, dtype=torch.int32, device=x2d.device)
         rc = _lib().seg_count_gt_launch(
             x2d.data_ptr(), m.block_seg.data_ptr(), thr.data_ptr(),
             geom.nblocks, out.data_ptr(), _stream())

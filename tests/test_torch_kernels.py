@@ -437,55 +437,91 @@ def _need_cuda():
 # there with: python -m pytest --noconftest -m cuda tests/test_torch_*.py
 
 @pytest.mark.cuda
-def test_cuda_kernels_match_twins():
+@pytest.mark.parametrize("tied", [False, True])
+def test_cuda_kernels_match_twins(tied):
     """On the card: each CUDA kernel against its plain twin on the same
     CUDA tensors (bitwise sums, exact counts and compaction, bitwise
-    fused residual update), with ties, threshold 0, bucket overflow and
-    strides off the slot sizes."""
+    fused residual update), with ties or not, threshold 0, bucket
+    overflow and strides off the slot sizes; the strided forms also at
+    every stride 1 to 1024 (``_check_strided_on_card``)."""
     torch = _need_cuda()
     from repro_torch.kernels import ref
     from repro_torch.kernels import segmented as kseg
     group = _port_group()
     g = group.geometry
-    for tied in (False, True):
-        x = torch.from_numpy(_arena(group, 7, tied)).cuda()
-        thr = torch.tensor([0.9, 1.0, 0.0], device="cuda")
-        ks, km = kseg.seg_abs_sum_max(x, g)
-        ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg)
-        assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
-        assert torch.equal(km, pm)
-        assert torch.equal(kseg.seg_count_gt(x, g, thr),
-                           ref.seg_count_gt(x, g.block_seg, thr, g.n_seg))
-        got = kseg.seg_compact_gt(x, g, thr, 8)
-        want = ref.seg_compact_gt(x, g.block_seg, g.block_base,
-                                  g.block_size, thr, 8)
+    x = torch.from_numpy(_arena(group, 7, tied)).cuda()
+    thr = torch.tensor([0.9, 1.0, 0.0], device="cuda")
+    ks, km = kseg.seg_abs_sum_max(x, g)
+    ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(km, pm)
+    assert torch.equal(kseg.seg_count_gt(x, g, thr),
+                       ref.seg_count_gt(x, g.block_seg, thr, g.n_seg))
+    got = kseg.seg_compact_gt(x, g, thr, 8)
+    want = ref.seg_compact_gt(x, g.block_seg, g.block_base,
+                              g.block_size, thr, 8)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _check_compaction_on_card(torch, ref, kseg, tied)
+    # the strided (sampled) forms and the fused residual update
+    ks, km = kseg.seg_abs_sum_max(x, g, STRIDES)
+    ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg,
+                                 STRIDES)
+    assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+    assert torch.equal(km, pm)
+    assert torch.equal(
+        kseg.seg_count_gt(x, g, thr, STRIDES),
+        ref.seg_count_gt(x, g.block_seg, thr, g.n_seg,
+                         np.asarray(STRIDES, np.int32)[g.block_seg]))
+    u, p = x * 0.5, x * 0.25
+    for m, nest, wd, rd in ((0.9, False, 0.0, None),
+                            (0.9, True, 1e-4, None),
+                            (0.0, False, 0.0, None),
+                            (0.9, False, 0.0, torch.bfloat16)):
+        kw = dict(momentum=m, nesterov=nest, weight_decay=wd,
+                  round_dtype=rd, stride_seg=STRIDES)
+        got = kseg.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
+        want = ref.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
         for a, b in zip(got, want):
-            assert torch.equal(a, b)
-        _check_compaction_on_card(torch, ref, kseg, tied)
-        # the strided (sampled) forms and the fused residual update
-        ks, km = kseg.seg_abs_sum_max(x, g, STRIDES)
-        ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, g.n_seg,
-                                     STRIDES)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32))
+    _check_strided_on_card(torch, ref, kseg, tied)
+
+
+# Strides 1 to 1024 over slots of one element, a large stride-1 slot
+# (333,333 elements) and sizes that end mid-row; each stride order is also
+# taken reversed, so every stride meets two sizes.
+STRIDED_SIZES = (333_333, 1, 1000, 1025, 5000, 70_000, 3, 2047, 4097, 1,
+                 100_000)
+ALL_STRIDES = tuple(1 << j for j in range(11))
+
+
+def _check_strided_on_card(torch, ref, kseg, tied):
+    """The strided seg_abs_sum_max and seg_count_gt against their twins,
+    bitwise, at every stride 1 to 1024, with thresholds 0, 1, negative
+    (the stride grid's zero padding counts) and mixed."""
+    group = _port_group(STRIDED_SIZES, tuple(max(1, n // 100)
+                                             for n in STRIDED_SIZES))
+    g = group.geometry
+    assert any(b + 1024 > n for b, n in zip(g.block_base, g.block_size))
+    x = torch.from_numpy(_arena(group, 13, tied)).cuda()
+    n = g.n_seg
+    thrs = [torch.full((n,), v, device="cuda") for v in (0.0, 1.0, -1.0)]
+    thrs.append(torch.tensor([(-1.0, 0.0, 1.0)[i % 3] for i in range(n)],
+                             device="cuda"))
+    for strides in (ALL_STRIDES, ALL_STRIDES[::-1]):
+        ks, km = kseg.seg_abs_sum_max(x, g, strides)
+        ps, pm = ref.seg_abs_sum_max(x, g.block_seg, g.block_size, n,
+                                     strides)
         assert torch.equal(ks.view(torch.int32), ps.view(torch.int32))
-        assert torch.equal(km, pm)
-        assert torch.equal(
-            kseg.seg_count_gt(x, g, thr, STRIDES),
-            ref.seg_count_gt(x, g.block_seg, thr, g.n_seg,
-                             np.asarray(STRIDES, np.int32)[g.block_seg]))
-        u, p = x * 0.5, x * 0.25
-        for m, nest, wd, rd in ((0.9, False, 0.0, None),
-                                (0.9, True, 1e-4, None),
-                                (0.0, False, 0.0, None),
-                                (0.9, False, 0.0, torch.bfloat16)):
-            kw = dict(momentum=m, nesterov=nest, weight_decay=wd,
-                      round_dtype=rd, stride_seg=STRIDES)
-            got = kseg.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
-            want = ref.seg_residual_update_stats(x * 1e-2, x, u, p, g, **kw)
-            for a, b in zip(got, want):
-                assert (a is None) == (b is None)
-                if a is not None:
-                    assert torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32))
+        assert torch.equal(km.view(torch.int32), pm.view(torch.int32))
+        stride_b = np.asarray(strides, np.int32)[g.block_seg]
+        for thr in thrs:
+            assert torch.equal(kseg.seg_count_gt(x, g, thr, strides),
+                               ref.seg_count_gt(x, g.block_seg, thr, n,
+                                                stride_b))
 
 
 def _check_compaction_on_card(torch, ref, kseg, tied):
