@@ -24,13 +24,14 @@ the JAX package. Phases, each fatal on failure:
    nine-slot sampled arena (strides 512 and 1, 64,480 rows) and on a
    ragged arena with strides 1-1024, slot sizes off the stride, ties and
    threshold 0; the fused pass with momentum 0.9, with nesterov and
-   weight decay, without momentum and with a bf16 round. Before the
-   strided forms' times, the launch floor: an empty kernel of one block
-   and on their grid (one cluster of 8 or 16 blocks per slot); after
-   them, the device operations one wrapper call issues (from
-   ``torch.profiler``: fails unless one), their samples' 32-byte sectors
-   beside the useful bytes of the bound, and both cluster sizes, bitwise
-   against the twins and timed. The per-leaf
+   weight decay, without momentum and with a bf16 round. After the
+   strided forms' times, the launch floor (an empty kernel of one block
+   and on their grid of clusters of 8 blocks), then for each the device
+   operations one wrapper call issues (from ``torch.profiler``: fails
+   unless one), its samples' 32-byte sectors beside the useful bytes of
+   the bound, and its time with the samples cold in HBM; the strided
+   forms with every stride 1 are held against the exact twins at the
+   full-width arena and timed beside the exact forms. The per-leaf
    kernels (count_gt, abs_sum_max, compact_gt, its exact form
    compact_gt_exact at up to four capacities, residual_update) run on the
    full-width leaves (15M and 9M elements, a threshold that overflows the
@@ -366,24 +367,39 @@ def phase_kernels(results: dict) -> None:
                 nbytes, ops)
     del x_crowd
 
-    # Why the exact count keeps its own kernel: the strided count with every
-    # stride 1 counts the same, timed here against count_gt on this arena.
+    # Why the exact forms keep their own kernels: the strided forms with
+    # every stride 1 compute the same, timed here against them on this arena
+    # (a stride-1 slot inside a sampled call takes this path).
     m = kseg._device_maps(geom, dev, None)
-    out = torch.empty(nseg, dtype=torch.int32, device=dev)
+    lib = kseg._lib()
+    sums = torch.empty((2, nseg), dtype=torch.float32, device=dev)
+    cnt = torch.empty(nseg, dtype=torch.int32, device=dev)
 
-    def strided_at_1():
-        rc = kseg._lib().seg_count_gt_strided_launch(
+    def stats_at_1():
+        kseg._raise_on(lib.seg_abs_sum_max_strided_launch(
+            x_full.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
+            m.seg_stride.data_ptr(), nseg, m.log_g, m.samp_part.data_ptr(),
+            m.ticket[0].data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+            kseg._stream()), "stats_sampled at stride 1")
+
+    def count_at_1():
+        kseg._raise_on(lib.seg_count_gt_strided_launch(
             x_full.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
-            m.seg_pad.data_ptr(), thr_full.data_ptr(), nseg,
-            kseg.SAMPLE_CLUSTER, out.data_ptr(), kseg._stream())
-        kseg._raise_on(rc, "count_sampled at stride 1")
-    strided_at_1()
-    if not same_bits(out, plain_count(x_full, geom, thr_full)):
-        _fail("count_sampled at stride 1 differs from the exact count")
-    ms_1 = graph_ms(strided_at_1, 20)
-    print(f"[kernels] exact count at full width: count_gt "
-          f"{results['seg_count_gt']['ms']:.4f} ms, count_sampled with "
-          f"every stride 1 {ms_1:.4f} ms (counts equal)")
+            m.seg_pad.data_ptr(), thr_full.data_ptr(), nseg, m.log_g,
+            m.count_part.data_ptr(), m.ticket[1].data_ptr(), cnt.data_ptr(),
+            kseg._stream()), "count_sampled at stride 1")
+    stats_at_1()
+    count_at_1()
+    ps, pm = plain_stats(x_full, geom)
+    if not (same_bits(sums[0], ps) and same_bits(sums[1], pm)
+            and same_bits(cnt, plain_count(x_full, geom, thr_full))):
+        _fail("a strided form at stride 1 differs from the exact twin")
+    print(f"[kernels] every stride 1 at full width ({1 << m.log_g} clusters "
+          f"of 8 blocks per slot; equal to the exact twins): stats_sampled "
+          f"{graph_ms(stats_at_1, 20):.4f} ms against seg_abs_sum_max "
+          f"{results['seg_abs_sum_max']['ms']:.4f}, count_sampled "
+          f"{graph_ms(count_at_1, 20):.4f} ms against count_gt "
+          f"{results['seg_count_gt']['ms']:.4f}")
 
 
 def phase_sampled_kernels(results: dict) -> None:
@@ -495,32 +511,41 @@ def phase_sampled_kernels(results: dict) -> None:
         "seg_abs_sum_max_strided": "src/repro/kernels/segmented.py:91",
         "seg_count_gt_strided": "src/repro/kernels/segmented.py:165",
         "seg_residual_update_stats": "src/repro/kernels/segmented.py:328"}
-    floor = launch_floor(nseg)
     for name, (kern, plain, nbytes, ops) in timing.items():
         results[name] = time_kernel(name, kern, plain, nbytes, ops)
         results[name].update(replaces=replaces[name],
                              max_abs_err=err[name])
-    sampled_forms(x, geom, st_full, thr, floor)
+    sampled_forms(x, geom, st_full, thr, results)
 
 
-def launch_floor(n_seg: int) -> dict:
+def launch_floor(n_seg: int, log_g: int) -> dict:
     """The least device time of one launch (graph harness): an empty kernel
-    of one block, and on the strided forms' grid (clusters of 8 and 16
-    blocks, one per segment)."""
+    of one block, and on the strided forms' grid (2^log_g clusters of 8
+    blocks per segment)."""
     from repro_torch.kernels import segmented as kseg
 
-    def empty(cluster):
+    def empty(lg):
         def fn():
-            rc = kseg._lib().launch_floor_launch(n_seg, cluster,
-                                                 kseg._stream())
-            kseg._raise_on(rc, f"empty kernel, clusters of {cluster}")
+            kseg._raise_on(kseg._lib().launch_floor_launch(
+                n_seg, lg, kseg._stream()), "empty kernel")
         return fn
-    floor = {c: graph_ms(empty(c), 20) for c in (0, 8, 16)}
+    floor = {"block": graph_ms(empty(-1), 20),
+             "grid": graph_ms(empty(log_g), 20)}
     print(f"[kernels] launch floor: empty kernel, one block "
-          f"{floor[0]:.4f} ms; on the strided forms' grid of {n_seg} "
-          f"clusters: of 8 blocks {floor[8]:.4f} ms, of 16 "
-          f"{floor[16]:.4f} ms")
+          f"{floor['block']:.4f} ms; on the strided forms' grid of "
+          f"{n_seg} x {1 << log_g} clusters of 8 blocks "
+          f"{floor['grid']:.4f} ms")
     return floor
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` with its inputs cold in HBM: in one CUDA graph
+    each call follows a 128 MB write (over the 50 MB L2), less the time of
+    the writes alone."""
+    import torch
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    both = graph_ms(lambda: (flush.zero_(), fn()), reps)
+    return both - graph_ms(flush.zero_, reps)
 
 
 def device_ops(fn) -> list[str]:
@@ -538,17 +563,13 @@ def device_ops(fn) -> list[str]:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def sampled_forms(x, geom, strides, thr, floor: dict) -> None:
+def sampled_forms(x, geom, strides, thr, results: dict) -> None:
     """The strided forms at the full-width sampled arena: the device
     operations one wrapper call issues (must be one), the 32-byte sectors
-    their samples occupy beside the useful bytes, and both cluster sizes
-    (bitwise equal to the twins; timed in the graph harness)."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import ref
+    their samples occupy beside the useful bytes, the launch floor on
+    their grid and their time with the samples cold in HBM."""
     from repro_torch.kernels import segmented as kseg
 
-    nseg = geom.n_seg
     pads = [(r1 - r0) * 1024 for r0, r1 in geom.seg_rows]
     n_samp = [-(-n // s) for n, s in zip(geom.seg_sizes, strides)]
     n_grid = [p // s for p, s in zip(pads, strides)]
@@ -557,13 +578,8 @@ def sampled_forms(x, geom, strides, thr, floor: dict) -> None:
         # samples s floats apart: one sector each from s = 8 on
         return 32 * sum(c if s >= 8 else -(-c * s // 8)
                         for c, s in zip(counts, strides))
-    want_s = ref.seg_abs_sum_max(x, geom.block_seg, geom.block_size, nseg,
-                                 strides)
-    want_c = ref.seg_count_gt(
-        x, geom.block_seg, thr, nseg,
-        np.asarray(strides, np.int32)[np.asarray(geom.block_seg)])
     m = kseg._device_maps(geom, x.device, tuple(strides))
-    lib = kseg._lib()
+    floor = launch_floor(geom.n_seg, m.log_g)
     for name, call, useful, sec in (
             ("seg_abs_sum_max_strided",
              lambda: kseg.seg_abs_sum_max(x, geom, strides),
@@ -576,38 +592,10 @@ def sampled_forms(x, geom, strides, thr, floor: dict) -> None:
               f"wrapper call {ops}; {useful:,} useful bytes "
               f"({useful / 3.35e9:.6f} ms at 3.35 TB/s), {sec:,} bytes of "
               f"32-byte sectors ({sec / 3.35e9:.6f} ms); launch floor on "
-              f"its grid {floor[kseg.SAMPLE_CLUSTER]:.4f} ms")
+              f"its grid {floor['grid']:.4f} ms; {results[name]['ms']:.4f} "
+              f"ms warm, {cold_ms(call, 20):.4f} ms with its samples cold")
         if len(ops) != 1:
             _fail(f"{name} issues {len(ops)} device operations per call")
-    times = {}
-    for cluster in (8, 16):
-        sums = torch.empty((2, nseg), dtype=torch.float32, device=x.device)
-        cnt = torch.empty(nseg, dtype=torch.int32, device=x.device)
-
-        def stats(cluster=cluster, sums=sums):
-            kseg._raise_on(lib.seg_abs_sum_max_strided_launch(
-                x.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
-                m.seg_stride.data_ptr(), nseg, cluster, sums[0].data_ptr(),
-                sums[1].data_ptr(), kseg._stream()), "stats_sampled")
-
-        def count(cluster=cluster, cnt=cnt):
-            kseg._raise_on(lib.seg_count_gt_strided_launch(
-                x.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
-                m.seg_pad.data_ptr(), thr.data_ptr(), nseg, cluster,
-                cnt.data_ptr(), kseg._stream()), "count_sampled")
-        stats()
-        count()
-        torch.cuda.synchronize()
-        if not (_same_bits(sums[0], want_s[0]) and _same_bits(sums[1], want_s[1])
-                and _same_bits(cnt, want_c)):
-            _fail(f"a strided form in clusters of {cluster} differs from "
-                  f"its twin")
-        times[cluster] = (graph_ms(stats, 20), graph_ms(count, 20))
-    print("[kernels] strided forms by cluster size (bitwise equal to the "
-          "twins): " + "; ".join(
-              f"clusters of {c}: stats {a:.4f} ms, count {b:.4f} ms"
-              for c, (a, b) in times.items())
-          + f"; the wrappers use {kseg.SAMPLE_CLUSTER}")
 
 
 # The per-leaf kernels and the TPU kernel each replaces.

@@ -28,16 +28,19 @@
 // The strided forms (stats_sampled, count_sampled) read only each
 // segment's [::stride] samples: ~151K floats for the paper LSTM's sampled
 // arena, nearly all in a 32-byte sector of their own (4.2 MB of sectors,
-// 0.6 MB of useful bytes). Bandwidth does not bound them; a launch and
-// the chain of dependent round trips do: the segment's maps, then its
-// samples, then the reductions. So each is one launch with no scratch and
-// no memset: one thread-block cluster per segment (cudaLaunchKernelEx with
-// a cluster dimension of 8 or 16 blocks), whose blocks split the samples,
-// each thread issuing all of its loads (up to a batch of 8) before it uses
-// any; the blocks' partials meet in rank 0's distributed shared memory
-// behind one blocking cluster wait, and rank 0 stores the segment's result
-// with a plain store. Their floor is an empty launch of the same grid
-// (empty_kernel, launch_floor_launch): ~1.5 us of their ~5 us on the H100.
+// 0.6 MB of useful bytes). Bandwidth does not bound them there; a launch
+// and the chain of dependent round trips do: the segment's maps, then its
+// samples, then the reductions. So each is one launch with no memset and
+// no per-call scratch: thread-block clusters of 8 blocks (the portable
+// size; cudaLaunchKernelEx), G per segment (seg_strided_log_g: the fewest
+// G, at most 64, that leave each thread at most two batches of 8 loads),
+// each batch issued before any of its loads is used; larger
+// segments loop over more batches. The blocks' partials meet in rank 0's
+// distributed shared memory behind one blocking cluster wait; with G > 1
+// the last of a segment's clusters folds their partials. A warp's lanes
+// take consecutive samples, so a segment at stride 1 streams coalesced.
+// Their floor is an empty launch of the same grid (empty_kernel,
+// launch_floor_launch).
 //
 // Numerics follow the reference's default jnp backend, not the Pallas
 // bodies: the sums reproduce selection.pinned_sum bitwise (see
@@ -118,15 +121,19 @@ count_gt(const float* __restrict__ x, const int* __restrict__ block_seg,
   }
 }
 
-// ---- the strided forms: one thread-block cluster per segment -------------
-// Grid (cs, n_seg), cluster (cs, 1, 1): the cs blocks of cluster s split
-// segment s's samples. Each block arrives (relaxed) at the cluster barrier
-// as it starts and waits on it only once its own partial is ready, which
-// proves rank 0 resident; it then stores the partial into rank 0's shared
-// memory (distributed shared memory), arrives again with release
-// semantics and exits. Only rank 0 waits for that second phase, so no
-// block stays resident for another's reads and the one blocking wait is
-// rank 0's.
+// ---- the strided forms: thread-block clusters per segment ---------------
+// Grid (SAMPLE_CS * G, n_seg), clusters of SAMPLE_CS blocks: segment s
+// takes G = 2^log_g clusters, cluster g of blocks [g * CS, (g + 1) * CS),
+// whose blocks split the segment's samples. Inside a cluster each block
+// arrives (relaxed) at the cluster barrier as it starts and waits on it
+// only once its own partial is ready, which proves rank 0 resident; it then
+// stores the partial into rank 0's shared memory (distributed shared
+// memory), arrives again with release semantics and exits. Only rank 0
+// waits for that second phase. With G = 1 rank 0 stores the segment's
+// result. With G > 1 rank 0 stores its cluster's partial, and the last of
+// the segment's clusters (a ticket, which it resets to 0 itself) folds the
+// G partials and stores the result. The partials and tickets live as long
+// as the geometry's maps: calls on one geometry must be stream-ordered.
 namespace cg = cooperative_groups;
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
@@ -139,12 +146,25 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+constexpr int SAMPLE_CS = 8;          // blocks per cluster (the portable most)
 constexpr int SAMPLE_THREADS = 256;   // per block
 constexpr int SAMPLE_WARPS = SAMPLE_THREADS / 32;
 constexpr int SAMPLE_BATCH = 8;       // loads a thread issues before using any
+constexpr int LOG_CT = 11;            // log2(SAMPLE_CS * SAMPLE_THREADS)
 
-__host__ __device__ constexpr int log2_of(int v) {
-  return v > 1 ? 1 + log2_of(v / 2) : 0;
+// True for the one cluster of segment s that arrives last at ticket[s],
+// after every cluster of s has stored its partial; that one resets the
+// ticket for the next launch. Called by one whole warp after its lanes'
+// stores.
+__device__ __forceinline__ bool last_cluster(int* ticket, int s, int n) {
+  __threadfence();
+  __syncwarp();
+  int t = 0;
+  if ((threadIdx.x & 31) == 0) t = atomicAdd(ticket + s, 1);
+  const bool last = __shfl_sync(FULL, t, 0) == n - 1;
+  if (last && (threadIdx.x & 31) == 0) ticket[s] = 0;
+  __threadfence();
+  return last;
 }
 
 // fold_column for any R = 2^logr: below 8 rows the R loads are issued
@@ -169,38 +189,41 @@ __device__ __forceinline__ void fold_rows(int logr, Load load, float& sum,
 
 // seg_abs_sum_max with a stride per segment, in one launch. Segment s's n
 // sampled elements (element e at slot position e * stride), zero-padded to
-// P = next_pow2(n), are viewed as [R, C] with C = the cluster's CS * 256
+// P = next_pow2(n), are viewed as [R, C] with C = the segment's G * 2048
 // threads (a pinned tree over P padded further with zeros has the same
-// bits, so C may exceed P) and R = max(1, P / C). Column i belongs to
-// thread tid of block rank with i = tid * CS + rank, so the tree's levels
-// after the column folds (pairs i, i + h for h = C/2 .. 1) first pair
-// threads of one block (h >= CS: across warps, then inside a warp by
-// shuffles) and last the cluster's blocks (h < CS: ranks r, r + h).
-template <int CS>
+// bits, so C may exceed P) and R = max(1, P / C). Thread (warp w, lane l)
+// of rank r in cluster g folds column i = ((w * CS + r) * G + g) * 32 + l:
+// a warp's lanes read consecutive samples (coalesced at stride 1), and the
+// tree's levels after the column folds (pairs i, i + h for h = C/2 .. 1)
+// pair first the warps of a block, then the cluster's ranks, then the
+// segment's clusters, and last the lanes — each level per lane until the
+// last, so a block hands on 32 partials, not one.
 __global__ void __launch_bounds__(SAMPLE_THREADS)
 stats_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off,
               const int* __restrict__ seg_n, const int* __restrict__ seg_stride,
+              int log_g, float* __restrict__ part, int* __restrict__ ticket,
               float* __restrict__ out_sum, float* __restrict__ out_max) {
-  constexpr int LOG_C = log2_of(CS * SAMPLE_THREADS);
   __shared__ float wsum[SAMPLE_WARPS][32];
   __shared__ float wmax[SAMPLE_WARPS][32];
-  __shared__ float red[2][CS];   // rank 0's: the blocks' (sum, max)
+  __shared__ float red[2][SAMPLE_CS][32];   // rank 0's: the blocks' partials
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();
   const int rank = static_cast<int>(cluster.block_rank());
+  const int g = blockIdx.x / SAMPLE_CS;
   const int s = blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int i = threadIdx.x * CS + rank;
+  const int log_c = LOG_CT + log_g;
+  const int i = ((((w * SAMPLE_CS + rank) << log_g) + g) << 5) + lane;
   const int n = seg_n[s];
   const long long st = seg_stride[s];
   const float* base = x + seg_off[s];
   const int logp = n > 1 ? 32 - __clz(n - 1) : 0;
   float sum, mx;
-  fold_rows(logp > LOG_C ? logp - LOG_C : 0, [&](int t) {
-    const long long e = (static_cast<long long>(t) << LOG_C) + i;
+  fold_rows(logp > log_c ? logp - log_c : 0, [&](int t) {
+    const long long e = (static_cast<long long>(t) << log_c) + i;
     return e < n ? fabsf(base[e * st]) : 0.f;
   }, sum, mx);
-  // the block's levels: across warps (tid, tid + 32 h'), then the lanes
+  // the block's levels: across warps (w, w + h), per lane
   wsum[w][lane] = sum;
   wmax[w][lane] = mx;
   __syncthreads();
@@ -216,70 +239,89 @@ stats_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off
 #pragma unroll
       for (int q = 0; q < h; ++q) a[q] = __fadd_rn(a[q], a[q + h]);
     sum = a[0];
-    for (int off = 16; off; off >>= 1) {
-      sum = __fadd_rn(sum, __shfl_down_sync(FULL, sum, off));
-      mx = fmaxf(mx, __shfl_down_sync(FULL, mx, off));
-    }
   }
   cluster_wait();
-  if (threadIdx.x == 0) {
-    float (*r0)[CS] = cluster.map_shared_rank(red, 0);
-    r0[0][rank] = sum;
-    r0[1][rank] = mx;
+  if (w == 0) {
+    float (*r0)[SAMPLE_CS][32] = cluster.map_shared_rank(red, 0);
+    r0[0][rank][lane] = sum;
+    r0[1][rank][lane] = mx;
   }
   cluster_arrive_release();
   if (rank != 0) return;
   cluster_wait();
-  // the cluster's levels: rank r's partial in lane r (lanes >= CS add +0)
-  if (w == 0) {
-    float a = lane < CS ? red[0][lane] : 0.f;
-    float m = lane < CS ? red[1][lane] : 0.f;
-    for (int off = 16; off; off >>= 1) {
-      a = __fadd_rn(a, __shfl_down_sync(FULL, a, off));
-      m = fmaxf(m, __shfl_down_sync(FULL, m, off));
-    }
-    if (lane == 0) {
-      out_sum[s] = a;
-      out_max[s] = m;
-    }
+  if (w != 0) return;
+  // the cluster's levels: ranks (r, r + h), per lane
+  float a[SAMPLE_CS];
+  mx = 0.f;
+#pragma unroll
+  for (int r = 0; r < SAMPLE_CS; ++r) {
+    a[r] = red[0][r][lane];
+    mx = fmaxf(mx, red[1][r][lane]);
+  }
+#pragma unroll
+  for (int h = SAMPLE_CS / 2; h; h >>= 1)
+#pragma unroll
+    for (int r = 0; r < h; ++r) a[r] = __fadd_rn(a[r], a[r + h]);
+  sum = a[0];
+  if (log_g) {
+    // the segment's levels: clusters (g, g + h), per lane, by the last one
+    float* ps = part + (static_cast<long long>(s) << (log_g + 6));
+    ps[(g << 6) + lane] = sum;
+    ps[(g << 6) + 32 + lane] = mx;
+    if (!last_cluster(ticket, s, 1 << log_g)) return;
+    fold_column(log_g, [&](int t) { return __ldcg(ps + (t << 6) + lane); },
+                sum, mx);
+    mx = 0.f;
+    for (int t = 0; t < (1 << log_g); ++t)
+      mx = fmaxf(mx, __ldcg(ps + (t << 6) + 32 + lane));
+  }
+  // the lanes' levels
+  for (int off = 16; off; off >>= 1) {
+    sum = __fadd_rn(sum, __shfl_down_sync(FULL, sum, off));
+    mx = fmaxf(mx, __shfl_down_sync(FULL, mx, off));
+  }
+  if (lane == 0) {
+    out_sum[s] = sum;
+    out_max[s] = mx;
   }
 }
 
 // seg_count_gt with a stride per segment, in one launch. Segment s's stride
 // grid is the slot-local vector of positions e * stride, e < pad / stride,
-// padding included as the twin counts it. The cluster's threads take
-// positions CS * 256 apart, each issuing a batch of 8 loads before counting
-// any; the count is reduced in the warp, the block and then, through
-// distributed shared memory, the cluster (integer adds: order-free).
-template <int CS>
+// padding included as the twin counts it. The segment's G * 2048 threads
+// take consecutive grid positions, each issuing a batch of 8 loads before
+// counting any; the count is reduced in the warp, the block, through
+// distributed shared memory the cluster, and with G > 1 by the last cluster
+// (integer adds: order-free).
 __global__ void __launch_bounds__(SAMPLE_THREADS)
 count_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off,
               const int* __restrict__ seg_stride, const int* __restrict__ seg_pad,
-              const float* __restrict__ thr, int* __restrict__ out) {
-  constexpr int CT = CS * SAMPLE_THREADS;
+              const float* __restrict__ thr, int log_g, int* __restrict__ part,
+              int* __restrict__ ticket, int* __restrict__ out) {
   __shared__ int wcnt[SAMPLE_WARPS];
-  __shared__ int red[CS];   // rank 0's: the blocks' counts
+  __shared__ int red[SAMPLE_CS];   // rank 0's: the blocks' counts
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();
   const int rank = static_cast<int>(cluster.block_rank());
   const int s = blockIdx.y;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int ct = 1 << (LOG_CT + log_g);
   const long long st = seg_stride[s];
   const int grid_n = seg_pad[s] / static_cast<int>(st);
   const float t = thr[s];
   const float* base = x + seg_off[s];
   int c = 0;
-  for (int e0 = rank * SAMPLE_THREADS + threadIdx.x; e0 < grid_n;
-       e0 += SAMPLE_BATCH * CT) {
+  for (int e0 = blockIdx.x * SAMPLE_THREADS + threadIdx.x; e0 < grid_n;
+       e0 += SAMPLE_BATCH * ct) {
     float v[SAMPLE_BATCH];
 #pragma unroll
     for (int u = 0; u < SAMPLE_BATCH; ++u) {
-      const int e = e0 + u * CT;
+      const int e = e0 + u * ct;
       v[u] = e < grid_n ? base[e * st] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < SAMPLE_BATCH; ++u)
-      c += (e0 + u * CT < grid_n) & (fabsf(v[u]) > t);
+      c += (e0 + u * ct < grid_n) & (fabsf(v[u]) > t);
   }
   c = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(c)));
   if (lane == 0) wcnt[w] = c;
@@ -292,44 +334,44 @@ count_sampled(const float* __restrict__ x, const long long* __restrict__ seg_off
   cluster_arrive_release();
   if (rank != 0) return;
   cluster_wait();
-  if (w == 0) {
-    c = static_cast<int>(__reduce_add_sync(
-        FULL, static_cast<unsigned>(lane < CS ? red[lane] : 0)));
-    if (lane == 0) out[s] = c;
+  if (w != 0) return;
+  c = static_cast<int>(__reduce_add_sync(
+      FULL, static_cast<unsigned>(lane < SAMPLE_CS ? red[lane] : 0)));
+  if (log_g) {
+    int* pc = part + (static_cast<long long>(s) << log_g);
+    if (lane == 0) pc[blockIdx.x / SAMPLE_CS] = c;
+    if (!last_cluster(ticket, s, 1 << log_g)) return;
+    c = 0;
+    for (int q = lane; q < (1 << log_g); q += 32) c += __ldcg(pc + q);
+    c = static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(c)));
   }
+  if (lane == 0) out[s] = c;
 }
 
 // The launch floor: a kernel that does nothing, launched as the strided
 // forms are (or as one plain block).
 __global__ void empty_kernel(int) {}
 
-// Launch kernel on grid (cs, n_y) in clusters of cs blocks of
-// SAMPLE_THREADS threads; returns the launch's error (0 = launched).
+// Launch kernel on grid (SAMPLE_CS << log_g, n_y) in clusters of SAMPLE_CS
+// blocks of SAMPLE_THREADS threads; returns the launch's error (0 =
+// launched).
 template <class... Params, class... Args>
-int launch_clusters(void (*kernel)(Params...), int cs, int n_y,
+int launch_clusters(void (*kernel)(Params...), int log_g, int n_y,
                     cudaStream_t st, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, n_y, 1);
+  cfg.gridDim = dim3(SAMPLE_CS << log_g, n_y, 1);
   cfg.blockDim = dim3(SAMPLE_THREADS, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.x = SAMPLE_CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// Clusters of 16 are beyond the portable 8: the kernel must opt in, once
-// (outside any stream capture: the first call of each entry point is).
-template <class... Params>
-cudaError_t allow_16(void (*kernel)(Params...)) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // Alg 4 lines 8-19 on one arena element k, exactly as the plain twin
@@ -497,50 +539,55 @@ int seg_count_gt_launch(const float* x, const int* block_seg, const float* thr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The strided forms take cluster = 8 or 16 (blocks per segment); each is
-// one launch and writes every output element with a plain store.
+// The strided forms run 2^log_g clusters of 8 blocks per segment (log_g
+// <= 6). part holds n_seg << (log_g + 6) floats (stats) or n_seg << log_g
+// ints (count), ticket n_seg ints that are 0 before the launch and are 0
+// again after it; neither is read when log_g is 0. Each is one launch and
+// writes every output element with a plain store.
 int seg_abs_sum_max_strided_launch(const float* x, const long long* seg_off,
                                    const int* seg_n, const int* seg_stride,
-                                   int n_seg, int cluster, float* out_sum,
-                                   float* out_max, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cluster == 8)
-    return launch_clusters(stats_sampled<8>, 8, n_seg, st, x, seg_off, seg_n,
-                           seg_stride, out_sum, out_max);
-  if (cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t allowed = allow_16(stats_sampled<16>);
-  if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  return launch_clusters(stats_sampled<16>, 16, n_seg, st, x, seg_off, seg_n,
-                         seg_stride, out_sum, out_max);
+                                   int n_seg, int log_g, float* part,
+                                   int* ticket, float* out_sum, float* out_max,
+                                   void* stream) {
+  if (log_g < 0 || log_g > 6) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(stats_sampled, log_g, n_seg,
+                         static_cast<cudaStream_t>(stream), x, seg_off, seg_n,
+                         seg_stride, log_g, part, ticket, out_sum, out_max);
 }
 
 int seg_count_gt_strided_launch(const float* x, const long long* seg_off,
                                 const int* seg_stride, const int* seg_pad,
-                                const float* thr, int n_seg, int cluster,
-                                int* out, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cluster == 8)
-    return launch_clusters(count_sampled<8>, 8, n_seg, st, x, seg_off,
-                           seg_stride, seg_pad, thr, out);
-  if (cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t allowed = allow_16(count_sampled<16>);
-  if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  return launch_clusters(count_sampled<16>, 16, n_seg, st, x, seg_off,
-                         seg_stride, seg_pad, thr, out);
+                                const float* thr, int n_seg, int log_g,
+                                int* part, int* ticket, int* out,
+                                void* stream) {
+  if (log_g < 0 || log_g > 6) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(count_sampled, log_g, n_seg,
+                         static_cast<cudaStream_t>(stream), x, seg_off,
+                         seg_stride, seg_pad, thr, log_g, part, ticket, out);
 }
 
-// The launch floor: empty_kernel on one plain block (cluster 0), or on the
-// strided forms' grid (cluster, n_seg) in clusters of 8 or 16.
-int launch_floor_launch(int n_seg, int cluster, void* stream) {
+// log2 of the clusters per segment for the strided forms whose largest
+// segment has `work` samples (padded to a power of two, or its stride
+// grid): the fewest that leave each thread at most two batches of loads,
+// at most 64. On the paper LSTM's sampled arena (H100) one cluster per
+// segment with two batches beat two clusters with one batch each and the
+// clusters' combine.
+int seg_strided_log_g(long long work) {
+  const long long per = 2LL * SAMPLE_BATCH * SAMPLE_CS * SAMPLE_THREADS;
+  int log_g = 0;
+  while (log_g < 6 && (per << log_g) < work) ++log_g;
+  return log_g;
+}
+
+// The launch floor: empty_kernel on one plain block (log_g < 0), or on the
+// strided forms' grid for log_g.
+int launch_floor_launch(int n_seg, int log_g, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cluster == 0) {
+  if (log_g < 0) {
     empty_kernel<<<1, 32, 0, st>>>(0);
     return static_cast<int>(cudaGetLastError());
   }
-  if (cluster != 8 && cluster != 16) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t allowed = allow_16(empty_kernel);
-  if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  return launch_clusters(empty_kernel, cluster, n_seg, st, 0);
+  return launch_clusters(empty_kernel, log_g, n_seg, st, 0);
 }
 
 int seg_residual_update_stats_launch(

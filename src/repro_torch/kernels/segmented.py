@@ -52,8 +52,8 @@ from repro_torch.core.selection import (Selected, bisect_midpoint,
                                         warm_ratio)
 
 from . import ref
-from .common import F as _F, I as _I, LOG_COLS, P as _P, ROW, launches
-from .common import raise_on as _raise_on, stream as _stream
+from .common import F as _F, I as _I, L as _L, LOG_COLS, P as _P, ROW
+from .common import launches, raise_on as _raise_on, stream as _stream
 from .ops import _cap_for, pick_first, pick_trimmed
 
 __all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
@@ -65,10 +65,6 @@ __all__ = ["seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-# Blocks per segment (one thread-block cluster) of the strided forms.
-SAMPLE_CLUSTER = 16
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     from .build import load
@@ -76,20 +72,22 @@ def _lib() -> ctypes.CDLL:
     lib.seg_abs_sum_max_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I,
                                            _P, _P, _P, _P, _P]
     lib.seg_abs_sum_max_strided_launch.argtypes = [_P, _P, _P, _P, _I, _I,
-                                                   _P, _P, _P]
+                                                   _P, _P, _P, _P, _P]
     lib.seg_count_gt_launch.argtypes = [_P, _P, _P, _I, _P, _P]
     lib.seg_count_gt_strided_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
-                                                 _P, _P]
+                                                 _P, _P, _P, _P]
     lib.seg_residual_update_stats_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _F, _I, _F, _I, _P, _P, _P, _P, _P, _P, _I,
         _I, _P, _P, _P, _P, _P]
     lib.seg_compact_gt_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I,
                                           _P, _P, _P, _P]
     lib.launch_floor_launch.argtypes = [_I, _I, _P]
+    lib.seg_strided_log_g.argtypes = [_L]
     for fn in (lib.seg_abs_sum_max_launch, lib.seg_abs_sum_max_strided_launch,
                lib.seg_count_gt_launch, lib.seg_count_gt_strided_launch,
                lib.seg_residual_update_stats_launch,
-               lib.seg_compact_gt_launch, lib.launch_floor_launch):
+               lib.seg_compact_gt_launch, lib.launch_floor_launch,
+               lib.seg_strided_log_g):
         fn.restype = _I
     return lib
 
@@ -107,6 +105,10 @@ class _DeviceMaps(NamedTuple):
     seg_logc: torch.Tensor    # i32[n_seg] log2 of phase-1 columns
     seg_logr: torch.Tensor    # i32[n_seg] log2 of phase-1 rows
     cmax: int
+    log_g: int                # log2 of the strided forms' clusters per slot
+    samp_part: torch.Tensor   # f32[n_seg << (log_g + 6)] their cluster
+    count_part: torch.Tensor  # i32[n_seg << log_g]        partials
+    ticket: torch.Tensor      # i32[2, n_seg] 0 between launches
 
 
 def _strides(stride_seg, geom) -> tuple[int, ...] | None:
@@ -136,6 +138,11 @@ def _device_maps(geom, device: torch.device,
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
         pads = [(r1 - r0) * geom.block for r0, r1 in geom.seg_rows]
+        # the strided forms' clusters per slot, for the largest slot's
+        # samples (padded to a power of two) or stride grid
+        log_g = _lib().seg_strided_log_g(max(
+            max(1 << p for p in logp),
+            max(p // s for p, s in zip(pads, strides))))
         geom.device_maps[key] = _DeviceMaps(
             i32(geom.block_seg), i32(geom.block_base), i32(geom.block_size),
             torch.as_tensor(np.asarray([r0 * geom.block
@@ -143,7 +150,12 @@ def _device_maps(geom, device: torch.device,
                                        np.int64), device=device),
             i32(ns), i32(strides), i32(pads),
             i32(logc), i32([p - c for p, c in zip(logp, logc)]),
-            1 << max(logc))
+            1 << max(logc), log_g,
+            torch.empty(geom.n_seg << (log_g + 6), dtype=torch.float32,
+                        device=device),
+            torch.empty(geom.n_seg << log_g, dtype=torch.int32,
+                        device=device),
+            torch.zeros((2, geom.n_seg), dtype=torch.int32, device=device))
     return geom.device_maps[key]
 
 
@@ -179,7 +191,8 @@ def seg_abs_sum_max(x2d: torch.Tensor, geom, stride_seg=None
     if strides:
         rc = _lib().seg_abs_sum_max_strided_launch(
             x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_n.data_ptr(),
-            m.seg_stride.data_ptr(), geom.n_seg, SAMPLE_CLUSTER,
+            m.seg_stride.data_ptr(), geom.n_seg, m.log_g,
+            m.samp_part.data_ptr(), m.ticket[0].data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), _stream())
     else:
         part = torch.empty((2, geom.n_seg, m.cmax), dtype=torch.float32,
@@ -215,8 +228,9 @@ def seg_count_gt(x2d: torch.Tensor, geom, thresholds: torch.Tensor,
         out = torch.empty(geom.n_seg, dtype=torch.int32, device=x2d.device)
         rc = _lib().seg_count_gt_strided_launch(
             x2d.data_ptr(), m.seg_off.data_ptr(), m.seg_stride.data_ptr(),
-            m.seg_pad.data_ptr(), thr.data_ptr(), geom.n_seg, SAMPLE_CLUSTER,
-            out.data_ptr(), _stream())
+            m.seg_pad.data_ptr(), thr.data_ptr(), geom.n_seg, m.log_g,
+            m.count_part.data_ptr(), m.ticket[1].data_ptr(), out.data_ptr(),
+            _stream())
     else:
         # the exact count adds each row's count with an atomic
         out = torch.zeros(geom.n_seg, dtype=torch.int32, device=x2d.device)

@@ -18,6 +18,11 @@ import pytest
 SIZES = (1500, 1024, 3000)      # ragged 3-slot arena: odd, exact, 3 rows
 SEG_KS = (7, 3, 40)
 STRIDES = (16, 1, 128)          # sampled strides; 1500 and 3000 not multiples
+ALL_STRIDES = tuple(1 << j for j in range(11))
+# every stride 1 to 1024 (in both orders) over one-element slots and sizes
+# that end mid-row
+SMALL_STRIDED_SIZES = (1, 1000, 1025, 5000, 3, 2047, 4097, 1, 20_000,
+                       33_333, 1500)
 
 
 def _groups(sizes=SIZES, ks=SEG_KS, alg="threshold_bsearch"):
@@ -315,6 +320,29 @@ def test_strided_twins_match_reference_bitwise(tied):
     np.testing.assert_array_equal(
         _bits(kseg.seg_mean(gs, g, STRIDES).numpy()),
         _bits(jseg.seg_mean(ws, jg.geometry, STRIDES)))
+    # every stride 1 to 1024, one-element slots, thresholds 0, 1, negative
+    # (the stride grid's zero padding counts) and mixed
+    jg, tg = _groups(SMALL_STRIDED_SIZES,
+                     tuple(max(1, n // 100) for n in SMALL_STRIDED_SIZES))
+    g = tg.geometry
+    x = _arena(jg, 13, tied)
+    xt = torch.from_numpy(x)
+    n = g.n_seg
+    thrs = [np.full(n, v, np.float32) for v in (0.0, 1.0, -1.0)]
+    thrs.append(np.asarray([(-1.0, 0.0, 1.0)[i % 3] for i in range(n)],
+                           np.float32))
+    for strides in (ALL_STRIDES, ALL_STRIDES[::-1]):
+        ws, wm = jref.seg_abs_sum_max(jnp.asarray(x), g.block_seg,
+                                      g.block_size, n, strides)
+        gs, gm = kseg.seg_abs_sum_max(xt, g, strides)
+        np.testing.assert_array_equal(_bits(gs.numpy()), _bits(ws))
+        np.testing.assert_array_equal(_bits(gm.numpy()), _bits(wm))
+        stride_b = np.asarray(strides, np.int32)[g.block_seg]
+        for thr in thrs:
+            wc = jref.seg_count_gt(jnp.asarray(x), g.block_seg,
+                                   jnp.asarray(thr), n, stride_b)
+            gc = kseg.seg_count_gt(xt, g, torch.from_numpy(thr), strides)
+            np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
 
 
 @pytest.mark.parametrize("momentum,nesterov,wd,bf16", [
@@ -495,7 +523,6 @@ def test_cuda_kernels_match_twins(tied):
 # taken reversed, so every stride meets two sizes.
 STRIDED_SIZES = (333_333, 1, 1000, 1025, 5000, 70_000, 3, 2047, 4097, 1,
                  100_000)
-ALL_STRIDES = tuple(1 << j for j in range(11))
 
 
 def _check_strided_on_card(torch, ref, kseg, tied):
