@@ -67,8 +67,28 @@ the JAX package. Phases, each fatal on failure:
    on some path;
    with ``--profile N``, N more steps of each path under
    ``torch.profiler`` print its device time by kernel;
-6. a JSON line per kernel (time, bound, launches on each path, error),
-   then the last line ``{"ok": true, "device": {...}}``.
+6. data-parallel ranks on the one card over ``torch.distributed``
+   (``spawn`` children, ``gloo`` on CUDA tensors, a file store in a
+   temporary directory), full-width ``paper-lstm`` with the
+   ``TrainConfig`` defaults on a seeded global batch of 40 x 35: at p = 2
+   (``("data",) = 2``, 20 rows per rank) 4 steps of the default path with
+   the kernels, then with the twins: kernels == twins bitwise (params,
+   residual, momentum, thresholds), ranks' params bitwise equal after
+   every step, each rank's gathered rows == every rank's own packed
+   buffer, each rank's launches per step the phase-5 default path's
+   (the same kernels; the same counts for those whose counts do not
+   depend on the data; the exact compactions equal to the overflow
+   branches; step 1 equal to a one-worker run on rank 0's rows); path 3a
+   with ``bucketed_allgather`` (at least 3 buckets) and
+   ``per_leaf_allgather`` == ``fused_allgather``; at p = 4
+   (``("node", "local") = (2, 2)``) ``hierarchical`` with either intra
+   axis == ``fused_allgather``; one rank over NCCL == no mesh. Prints the
+   ``WallClockTimer`` stage split (ms per step and share per stage, the
+   counters, the median step) at p = 1 and p = 2, and each rank's peak
+   device memory;
+7. a JSON line per kernel (time, bound, launches on each path and on
+   rank 0 of the p = 2 default path, error), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present or the
 port is not beside this script.
@@ -1061,7 +1081,9 @@ def _selection_spies(buckets: list, plain: dict):
     return stack
 
 
-def phase_train(results: dict, profile: int) -> None:
+def phase_train(results: dict, profile: int) -> list[dict]:
+    """The five paths; returns the default path's kernel launches per
+    step."""
     import torch
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
@@ -1123,6 +1145,8 @@ def phase_train(results: dict, profile: int) -> None:
                 _fail(f"{name} was not launched on path {label}")
         for k, v in total.items():
             per_path[k][key] = v
+        if key == "default":
+            default_steps = [counts for _, _, _, counts in rec]
         if profile:
             print(f"[profile] {label}:")
             profile_steps(trainer, state, data, profile)
@@ -1132,6 +1156,421 @@ def phase_train(results: dict, profile: int) -> None:
         if not any(counts.values()):
             _fail(f"{name} was launched on no path")
         results[name]["launches"] = counts
+    return default_steps
+
+
+# ---------------------------------------------------------------------------
+# phase 6: data-parallel ranks on the one card (torch.distributed)
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 4
+DIST_BATCH = 40            # global: 20 rows per rank at p = 2, as phase 5
+STEPS_3A = 3
+BUCKET_BYTES_3A = 300_000  # four buckets of path 3a's six messages
+# the default path's kernels whose launches per step do not depend on the
+# data (the search's counts and the exact compactions do)
+FIXED_PER_STEP = ("seg_abs_sum_max", "seg_compact_gt", "residual_update")
+
+
+def _dist_data(rows: slice | None = None):
+    """Phase 6's seeded global batches (``rows``: a slice of each)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    for batch in SyntheticLM(vocab_size=10_000, batch=DIST_BATCH,
+                             seq_len=35, seed=SEED):
+        yield batch if rows is None else {"tokens": batch["tokens"][rows]}
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _leaves(params, rgc=None) -> dict:
+    """A params tree and, if given, the residual, momentum and threshold
+    of every leaf of its ``LeafState`` tree, by path."""
+    from repro_torch.core import tree
+    out = {f"p{k}": v for k, v in tree.flatten_with_paths(params)}
+    for k, st in tree.flatten_with_paths(rgc or {}):
+        for fld in ("residual", "momentum", "threshold"):
+            out[f"s{k}.{fld}"] = getattr(st, fld)
+    return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(
+        torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+
+
+def _agree(ok: bool) -> bool:
+    """True when ``ok`` holds on every rank of the default group."""
+    import torch
+    import torch.distributed as dist
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _ranks_equal(tensors: list) -> bool:
+    """Whether every rank holds rank 0's bits in each of ``tensors``."""
+    import torch
+    import torch.distributed as dist
+    ok = True
+    for t in tensors:
+        buf = _bits(t).clone()
+        dist.broadcast(buf, src=0)
+        ok &= torch.equal(buf, _bits(t))
+    return _agree(ok)
+
+
+def _rows_are_buffers(own, gathered) -> bool:
+    """Whether row q of this rank's gathered matrix is rank q's own
+    packed buffer, for every q, on every rank (world-group meshes)."""
+    import torch
+    import torch.distributed as dist
+    ok = True
+    for q in range(gathered.shape[0]):
+        buf = own.clone() if q == dist.get_rank() else torch.empty_like(own)
+        dist.broadcast(buf, src=q)
+        ok &= torch.equal(_bits(buf), _bits(gathered[q]))
+    return _agree(ok)
+
+
+def _dist_run(mesh, overrides: dict, steps: int, *, timer=None,
+              rows: slice | None = None, wrap=None, check=None) -> tuple:
+    """``steps`` of ``Trainer(paper_lstm.FULL, TrainConfig(**overrides),
+    mesh=mesh)`` on phase 6's batches, launch and branch counts zeroed
+    just before. ``timer``: a stage timer the sync reports to (reset
+    after step 1), with a device barrier before and after each
+    ``GradientSync.update``, whose host times split the step (the
+    backward's queued kernels then end before the first stage starts);
+    ``wrap(transport)``: called before the first step;
+    ``check(step, state)``: run after each step, outside the timed
+    window. Returns (final state, per-step records, the replay log: the
+    initial params and each step's ``(grads, lr, density)`` as
+    ``GradientSync.update`` got them)."""
+    import torch
+    from repro_torch.configs import paper_lstm
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import common
+    from repro_torch.kernels import segmented as kseg
+    from repro_torch.train.trainer import Trainer, make_gradient_sync
+
+    trainer = Trainer(paper_lstm.FULL, TrainConfig(**overrides), mesh=mesh)
+    if timer is not None:
+        trainer._sync = make_gradient_sync(trainer.tc, trainer.device, mesh,
+                                           timer)
+    sync = trainer._sync
+    if wrap is not None:
+        wrap(sync.transport)
+    log: dict = {"steps": []}
+    update = sync.update
+    marks = []
+
+    def logged(grads, state, params, lr, density=None):
+        if timer is not None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(grads, state, params, lr, density=density)
+        if timer is not None:
+            torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter()))
+        log.setdefault("params", params)
+        log["steps"].append(({k: v.clone() for k, v in
+                              _leaves(grads).items()}, lr, density))
+        return out
+    sync.update = logged
+    state = trainer.init_state()
+    data = _dist_data(rows)
+    rec = []
+    for counts in (kseg.launches, common.branches):
+        for k in counts:
+            counts[k] = 0
+    for step in range(1, steps + 1):
+        launches, branches = dict(kseg.launches), dict(common.branches)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.run(state, data, 1, log_every=0,
+                            on_metrics=lambda s, d, loss: losses.append(loss))
+        torch.cuda.synchronize()
+        rec.append({"loss": losses[0], "s": time.perf_counter() - t0,
+                    "to_sync_s": marks[-1][0] - t0,
+                    "sync_s": marks[-1][1] - marks[-1][0],
+                    "launches": {k: v - launches[k]
+                                 for k, v in kseg.launches.items()
+                                 if v != launches[k]},
+                    "branches": {k: v - branches[k]
+                                 for k, v in common.branches.items()}})
+        if timer is not None and step == 1:
+            timer.reset()
+        if check is not None:
+            check(step, state)
+    return state, rec, log
+
+
+def _replay(mesh, overrides: dict, log: dict, timer=None) -> dict:
+    """The logged steps again through a fresh ``GradientSync`` built from
+    ``TrainConfig(**overrides)``: every update gets the same gradients
+    (so the model's own reduction order cannot enter the comparison).
+    Returns ``_leaves`` of the final params and state."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.train.trainer import make_gradient_sync
+
+    params = log["params"]
+    sync = make_gradient_sync(TrainConfig(**overrides),
+                              tree.flatten(params)[0][0].device, mesh, timer)
+    state = sync.init(params)
+    struct = tree.structure(params)
+    for grads, lr, density in log["steps"]:
+        params, state = sync.update(
+            tree.unflatten(struct, list(grads.values())), state, params, lr,
+            density=density)
+    return _leaves(params, state)
+
+
+def _dist_p2(rank: int, mesh) -> dict:
+    """World 2, ("data",) = 2: the default path with the kernels (stage
+    timer on; ranks' params and the gathered rows checked after every
+    step), its steps replayed with the twins; then path 3a, its steps
+    replayed with the bucketed and per-leaf transports."""
+    import torch
+    from repro_torch.core import WallClockTimer
+    out: dict = {"checks": {}}
+    seen: list = []
+    checks = out["checks"]
+
+    def spy(transport):
+        gather = transport.allgather
+
+        def wrapped(messages):
+            got = gather(messages)
+            seen.append((torch.cat(messages).clone(),
+                         torch.cat(got, dim=1).clone()))
+            return got
+        transport.allgather = wrapped
+
+    def check(step, state):
+        checks[f"ranks_equal_step{step}"] = _ranks_equal(
+            list(_leaves(state.params).values()))
+        checks[f"rows_step{step}"] = bool(seen) and all(
+            [_rows_are_buffers(own, g) for own, g in seen])
+        seen.clear()
+
+    timer = WallClockTimer()
+    state, out["default"], log = _dist_run(
+        mesh, {}, DIST_STEPS, timer=timer, wrap=spy, check=check)
+    out["split"] = timer.summary()
+    with _twins_patched():
+        twins = _replay(mesh, {}, log)
+    checks["kernels_equal_twins"] = _agree(
+        _same(_leaves(state.params, state.rgc), twins))
+    del state, log, twins
+    torch.cuda.empty_cache()
+
+    kw = {"fuse_leaves": False}
+    state, _, log = _dist_run(mesh, kw, STEPS_3A)
+    fused = _leaves(state.params, state.rgc)
+    for name, extra in (("bucketed_allgather",
+                         {"bucket_bytes": BUCKET_BYTES_3A}),
+                        ("per_leaf_allgather", {})):
+        timer = WallClockTimer()
+        got = _replay(mesh, {**kw, "transport": name, **extra}, log, timer)
+        out[f"3a_{name}"] = timer.summary()["counts"]
+        checks[f"3a_{name}_equal_fused"] = _agree(_same(got, fused))
+    return out
+
+
+def _dist_p4(rank: int, mesh) -> dict:
+    """World 4, ("node", "local") = (2, 2), default path: the fused
+    transport's steps replayed with both hierarchical ones."""
+    out: dict = {"checks": {}}
+    state, out["fused_allgather"], log = _dist_run(mesh, {}, 3)
+    fused = _leaves(state.params, state.rgc)
+    out["checks"]["ranks_equal"] = _ranks_equal(
+        list(_leaves(state.params).values()))
+    for label, kw in (("hierarchical", {}),
+                      ("hierarchical_intra_node", {"intra_axis": "node"})):
+        got = _replay(mesh, {"transport": "hierarchical", **kw}, log)
+        out["checks"][f"{label}_equal_fused"] = _agree(_same(got, fused))
+    return out
+
+
+def _dist_nccl1(rank: int, mesh) -> dict:
+    """World 1 over NCCL, default path; its steps replayed without a
+    mesh."""
+    state, rec, log = _dist_run(mesh, {}, 3)
+    return {"default": rec, "checks": {"nccl_equal_no_mesh": _same(
+        _leaves(state.params, state.rgc), _replay(None, {}, log))}}
+
+
+# task: (world, mesh shape, axes, backend, runner)
+DIST_TASKS = {
+    "p2": (2, (2,), ("data",), "gloo", _dist_p2),
+    "p4": (4, (2, 2), ("node", "local"), "gloo", _dist_p4),
+    "nccl1": (1, (1,), ("data",), "nccl", _dist_nccl1),
+}
+
+
+def _dist_worker(task: str, rank: int, workdir: str) -> None:
+    """One rank of a phase-6 task (a spawned child: it imports this file
+    and runs no phase of its own; the parent already built the kernels).
+    Writes ``<task>-rank<r>.json``, or its traceback to ``.err``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch.mesh import Mesh, init_process_group
+        world, shape, axes, backend, runner = DIST_TASKS[task]
+        init_process_group(f"file://{workdir}/{task}.pg", rank, world,
+                           backend=backend, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        out = runner(rank, Mesh(shape, axes))
+        torch.cuda.synchronize()
+        out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(workdir, f"{task}-rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(workdir, f"{task}-rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(task: str, workdir: str, timeout: float = 600.0) -> list[dict]:
+    """Run a phase-6 task on its ranks (``spawn`` children); fail unless
+    every rank exits 0 in time. Returns each rank's results."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    world = DIST_TASKS[task][0]
+    procs = [ctx.Process(target=_dist_worker, args=(task, r, workdir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = []
+    for r, p in enumerate(procs):
+        if p.exitcode != 0:
+            path = os.path.join(workdir, f"{task}-rank{r}.err")
+            errs.append(f"rank {r} exit {p.exitcode}:\n"
+                        + (open(path).read() if os.path.exists(path)
+                           else "(no traceback: killed or timed out)"))
+    if errs:
+        _fail(f"phase 6 task {task}:\n" + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"{task}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _print_split(label: str, split: dict, steps: int, rec: list,
+                 smi: str) -> None:
+    """The stage split of ``steps`` timed steps, one line per stage."""
+    for name, st in split["stages"].items():
+        print(f"[dist] {label}: stage {name} {1e3 * st['total_s'] / steps:.3f}"
+              f" ms/step, share {st['share']:.4f} ({st['calls']} calls)")
+    print(f"[dist] {label}: counters per step "
+          f"{ {k: v / steps for k, v in split['counts'].items()} }")
+    def med(key):
+        return 1e3 * statistics.median(r[key] for r in rec[1:])
+    print(f"[dist] {label}: median step {med('s'):.3f} ms = forward and "
+          f"backward (to the sync) {med('to_sync_s'):.3f} + "
+          f"GradientSync.update {med('sync_s'):.3f} + the rest; the "
+          f"stages sum to {1e3 * split['total_s'] / steps:.3f} ms/step "
+          f"(steps 2-{len(rec)}; {smi}; one card, gloo staging through "
+          f"the host)")
+
+
+def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
+    """Data-parallel ranks on the one card; see the module docstring."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import WallClockTimer
+
+    # p = 1 on rank 0's rows of the p = 2 run: the split's baseline, and
+    # step 1's launches must equal rank 0's at p = 2
+    timer = WallClockTimer()
+    _, rec1, _ = _dist_run(None, {}, DIST_STEPS, timer=timer,
+                           rows=slice(0, DIST_BATCH // 2))
+    split1 = timer.summary()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        p2 = _spawn("p2", workdir)
+        p4 = _spawn("p4", workdir)
+        n1 = _spawn("nccl1", workdir)
+
+    bad = [f"{task} rank {r}: {name}"
+           for task, ranks in (("p2", p2), ("p4", p4), ("nccl1", n1))
+           for r, res in enumerate(ranks)
+           for name, ok in res["checks"].items() if not ok]
+    allowed = set().union(*default_steps)
+    for r, res in enumerate(p2):
+        for s, (rec, one) in enumerate(zip(res["default"], default_steps),
+                                       1):
+            got = rec["launches"]
+            print(f"[dist] p=2 rank {r} step {s}: loss {rec['loss']:.6f} "
+                  f"time {rec['s'] * 1e3:.2f} ms launches {got} "
+                  f"(phase 5 step {s}: {one}) branches {rec['branches']}")
+            if set(got) - allowed or any(got.get(k, 0) != one.get(k, 0)
+                                         for k in FIXED_PER_STEP):
+                bad.append(f"p=2 rank {r} step {s}: launches {got}, "
+                           f"phase 5 {one}")
+            if got.get("compact_gt_exact", 0) != \
+                    rec["branches"]["exact_compaction"]:
+                bad.append(f"p=2 rank {r} step {s}: exact compactions "
+                           f"{got} vs branches {rec['branches']}")
+            for k in PATHS[0][3]:
+                if not got.get(k):
+                    bad.append(f"p=2 rank {r} step {s}: {k} not launched")
+        if not all(math.isfinite(x["loss"]) for x in res["default"]):
+            bad.append(f"p=2 rank {r}: non-finite loss")
+    if p2[0]["default"][0]["launches"] != rec1[0]["launches"]:
+        bad.append(f"step 1 launches: p=2 rank 0 "
+                   f"{p2[0]['default'][0]['launches']}, p=1 on its rows "
+                   f"{rec1[0]['launches']}")
+    for name in ("bucketed_allgather", "per_leaf_allgather"):
+        print(f"[dist] p=2 3a {name}: counters over {STEPS_3A} steps "
+              f"{p2[0]['3a_' + name]}")
+    if p2[0]["3a_bucketed_allgather"].get("buckets", 0) < 3 * STEPS_3A:
+        bad.append(f"3a bucketed: fewer than 3 buckets per step "
+                   f"{p2[0]['3a_bucketed_allgather']}")
+    for task, ranks in (("p2", p2), ("p4", p4), ("nccl1", n1)):
+        print(f"[dist] {task}: checks {ranks[0]['checks']}; peak memory "
+              f"per rank (GiB) "
+              f"{[round(r['max_memory_gib'], 3) for r in ranks]}")
+    med4 = statistics.median(x["s"] for x in p4[0]["fused_allgather"][1:])
+    print(f"[dist] p=4 rank 0 fused_allgather median step "
+          f"{1e3 * med4:.2f} ms")
+    _print_split("p=1", split1, DIST_STEPS - 1, rec1, smi)
+    _print_split("p=2 rank 0", p2[0]["split"], DIST_STEPS - 1,
+                 p2[0]["default"], smi)
+    if bad:
+        _fail("phase 6: " + "; ".join(bad))
+    total = {}
+    for rec in p2[0]["default"]:
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for name in results:
+        results[name]["launches"]["default_p2_rank0"] = total.get(name, 0)
+    print(f"[dist] OK: p=2 kernels == twins, ranks equal every step, "
+          f"gathered rows == every rank's buffer; 3a bucketed and per-leaf "
+          f"== fused; p=4 hierarchical (both intra axes) == fused; NCCL "
+          f"world 1 == no mesh")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1172,7 +1611,8 @@ def main(argv: list[str] | None = None) -> int:
     phase_sampled_kernels(results)
     phase_leaf_kernels(results)
     phase_sync()
-    phase_train(results, args.profile)
+    default_steps = phase_train(results, args.profile)
+    phase_dist(results, default_steps, smi)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",

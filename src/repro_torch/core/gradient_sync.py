@@ -25,11 +25,11 @@ and a separate statistics pass. In eager PyTorch both compute the same
 separately rounded products, so the two are bitwise equal.
 
 ``update`` is functional: it reads its inputs and returns new tensors.
-Ported here: the ``sequential`` schedule, the ``fused_allgather``
-transport on one worker, the ``momentum`` correction, the ``dense`` /
-``trimmed_topk`` / ``threshold_bsearch`` / ``sampled_bsearch``
-compressors, ``fuse_accumulate`` and bf16 residuals. The rest waits
-(ROADMAP.md).
+Ported here: the ``sequential`` schedule, all five transports (over the
+process groups of a ``launch.mesh.Mesh`` when ``sync_axes`` name
+workers), the ``momentum`` correction, the ``dense`` / ``trimmed_topk``
+/ ``threshold_bsearch`` / ``sampled_bsearch`` compressors,
+``fuse_accumulate`` and bf16 residuals. The rest waits (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -306,6 +306,17 @@ class GradientSync:
         return timer.stage("pack",
                            lambda: arena.pack_group(group, selected))
 
+    def _count_overflow(self, selections) -> None:
+        """Count ``threshold_filter`` capacity overflows (first
+        ``capacity`` survivors kept, count saturated) as
+        ``select_overflow``. Only under an active timer: reading a flag
+        is a host sync, and a ``NullTimer`` step must stay free of them."""
+        if not self.timer.active:
+            return
+        for sel in selections:
+            if sel.overflow is not None:
+                self.timer.count("select_overflow", int(bool(sel.overflow)))
+
     def update(self, grads: Any, state: Any, params: Any, lr, *,
                density: float | None = None) -> tuple[Any, Any]:
         """One synchronized step. Returns (new_params, new_state)."""
@@ -347,6 +358,7 @@ class GradientSync:
             results = timer.stage(
                 "select", lambda: self._select_groups(
                     plan.groups, plan.group_comps, accs))
+            self._count_overflow(s for sel, _ in results for s in sel)
             for group, comp, (sel, slot_states), acc in zip(
                     plan.groups, plan.group_comps, results, accs):
                 messages.append(self._finish_group(
@@ -362,6 +374,7 @@ class GradientSync:
             timer.count("dispatch_select")
             selected, st = timer.stage(
                 "select", lambda f=flat_v, st=st: comp.compress(f, k, st))
+            self._count_overflow([selected])
 
             def _mask(st=st, sel=selected):
                 st2 = mask_communicated(st, sel.indices, momentum=False)
@@ -433,6 +446,7 @@ def build_gradient_sync(
     *,
     transport: str = "fused_allgather",
     sync_axes: tuple[str, ...] = (),
+    mesh: Any = None,
     density: float = 0.001,
     momentum: float = 0.9,
     nesterov: bool = False,
@@ -441,6 +455,8 @@ def build_gradient_sync(
     residual_dtype: Any = torch.float32,
     dense_threshold_bytes: int | None = None,
     trimmed_threshold_bytes: int | None = None,
+    bucket_bytes: int | None = None,
+    intra_axis: str | None = None,
     fuse_leaves: bool = True,
     fuse_accumulate: bool = False,
     schedule: str = "sequential",
@@ -451,6 +467,14 @@ def build_gradient_sync(
     """Build a ``GradientSync`` from string-addressable component names
     (the reference's grammar: ``"rgc"``, ``"dense"``, any registered
     compressor spec, optionally prefixed by ``+``-joined corrections).
+
+    ``sync_axes`` name the data-parallel axes of ``mesh`` (a
+    ``launch.mesh.Mesh``) the step syncs over; no axes is one worker.
+    ``bucket_bytes`` (bucketed_allgather's byte budget) and
+    ``intra_axis`` (hierarchical's intra-node axis; default the last
+    sync axis) go to the transport, which ignores knobs it does not use.
+    ``timer`` is the ``StageTimer`` shared by the sync loop and the
+    transport (``None``: ``NullTimer``).
 
     ``device`` defaults to CUDA and raises when no card is present;
     ``device="cpu"`` runs the plain PyTorch path.
@@ -491,10 +515,16 @@ def build_gradient_sync(
             f"{registry.names(registry.CORRECTION)}")
 
     timer = timer if timer is not None else NullTimer()
+    transport_kw: dict[str, Any] = {"sync_axes": tuple(sync_axes),
+                                    "timer": timer, "mesh": mesh}
+    if bucket_bytes is not None:
+        transport_kw["bucket_bytes"] = bucket_bytes
+    if intra_axis is not None:
+        transport_kw["intra_axis"] = intra_axis
     return GradientSync(
         policy=policy,
         transport=registry.make(registry.TRANSPORT, transport,
-                                sync_axes=tuple(sync_axes), timer=timer),
+                                **transport_kw),
         density=density,
         momentum=momentum,
         nesterov=nesterov,

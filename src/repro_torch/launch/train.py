@@ -1,6 +1,9 @@
-"""Training launcher (port of ``src/repro/launch/train.py``, minimal).
+"""Training launcher (port of ``src/repro/launch/train.py``).
 
-Runs the paper's LSTM LM with RGC on one device, CUDA by default:
+Runs the paper's LSTM LM with RGC, CUDA by default; on one device, or
+data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
+``torchrun``, whose environment gives the rank, world size and address.
+``--batch`` is the GLOBAL batch, split over the ranks as in JAX:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35
@@ -11,6 +14,14 @@ Runs the paper's LSTM LM with RGC on one device, CUDA by default:
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35 --no-fuse-leaves \
       [--optimizer trimmed_topk]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch paper-lstm --smoke --mesh 2 --device cpu --steps 6 \
+      --batch 4 --seq 16 --density 0.02 [--transport per_leaf_allgather]
+
+On a mesh the backend is ``nccl`` on the card (one rank per card:
+``cuda:LOCAL_RANK``) and ``gloo`` on the CPU. The two-axis
+``("node", "local")`` mesh is reached through ``launch.mesh`` and
+``Trainer(mesh=...)``, as in the JAX harness.
 
 ``--profile N`` trains N more steps under ``torch.profiler`` and prints
 the device time by kernel and the device's busy share of those steps.
@@ -20,7 +31,30 @@ from __future__ import annotations
 import argparse
 
 
+def _mesh_from_env(spec: str, device):
+    """Join the process group ``torchrun`` describes and build the
+    ``("data",)`` mesh of ``--mesh D`` / ``Dx1``. Returns (mesh, device)."""
+    import os
+
+    from repro_torch.launch.mesh import Mesh, init_process_group
+    d, _, m = spec.partition("x")
+    if m and int(m) != 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: a model axis > 1 is not ported yet "
+            f"(see ROADMAP.md)")
+    env = os.environ
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if device is None:
+        device = f"cuda:{env.get('LOCAL_RANK', '0')}"
+    dev = init_process_group(
+        f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}", rank, world,
+        device=device)
+    return Mesh((int(d),), ("data",)), dev
+
+
 def main(argv: list[str] | None = None) -> None:
+    from repro_torch.core import registry
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=["paper-lstm"], required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -32,6 +66,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--optimizer", default="rgc",
                     help="rgc | dense | a registered compressor spec, "
                     "e.g. threshold_bsearch")
+    ap.add_argument("--transport", default="fused_allgather",
+                    choices=list(registry.names(registry.TRANSPORT)))
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="bucketed_allgather: byte budget per fused "
+                    "collective bucket (default 4 MiB)")
+    ap.add_argument("--mesh", default=None,
+                    help="D or Dx1: data parallel over D ranks started "
+                    "by torchrun (default: one device)")
     ap.add_argument("--no-fuse-leaves", action="store_true",
                     help="disable the flat residual arenas (per-leaf "
                     "mask/select/pack baseline)")
@@ -52,20 +94,34 @@ def main(argv: list[str] | None = None) -> None:
 
     cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
     tc = TrainConfig(lr=args.lr, optimizer=args.optimizer,
-                     density=args.density,
+                     transport=args.transport, density=args.density,
                      fuse_leaves=not args.no_fuse_leaves)
-    trainer = Trainer(cfg, tc, device=args.device)
+    if args.bucket_bytes is not None:
+        import dataclasses
+        tc = dataclasses.replace(tc, bucket_bytes=args.bucket_bytes)
+    mesh, device, kw = None, args.device, {}
+    if args.mesh:
+        mesh, device = _mesh_from_env(args.mesh, args.device)
+        kw["mesh"] = mesh
+    trainer = Trainer(cfg, tc, device=device, **kw)
     state = trainer.init_state()
     n = sum(p.numel() for p in trainer.model.parameters())
-    print(f"arch={cfg.name} params={n:,} optimizer={args.optimizer} "
-          f"density={args.density} fuse_leaves={tc.fuse_leaves} "
-          f"device={trainer.device}")
+    if mesh is not None and mesh.rank != 0:
+        args.log_every = 0      # rank 0 reports the (rank-mean) loss
+    else:
+        print(f"arch={cfg.name} params={n:,} optimizer={args.optimizer} "
+              f"density={args.density} fuse_leaves={tc.fuse_leaves} "
+              f"transport={tc.transport} mesh={mesh or 'single-device'} "
+              f"device={trainer.device}")
     batches = bigram_batches(cfg.vocab_size, args.batch, args.seq,
                              seed=tc.seed)
     state = trainer.run(state, batches, args.steps,
                         log_every=args.log_every)
     if args.profile:
         profile_steps(trainer, state, batches, args.profile)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 def profile_steps(trainer, state, batches, n: int) -> None:
