@@ -45,19 +45,35 @@ the JAX package. Phases, each fatal on failure:
    against torch.linalg.vector_norm as a yardstick, compact_gt_exact both
    writing every survivor (the trimmed top-k) and the first 2k at the
    bisection's threshold (the filter), at both leaf sizes;
+3b. the quantized search forms (``ops.threshold_binary_search_quant``,
+   ``ops.trimmed_topk_quant``: the per-leaf kernels on the signed score)
+   with the kernels and with the twins, in both phases, on full-width
+   leaves of 9M and 15M elements, a 9M leaf of ±0.0 with 1% nonzero
+   entries and a 9M leaf with 100 positives (fewer than k of phase 0's
+   sign): indices, count, overflow and quantized values bitwise, and
+   bitwise equal to the plain ``selection.*_quant`` on the same leaf;
+   each form's time per call on the two normal leaves beside the plain
+   version's;
 4. two full-width ``GradientSync.update`` steps (refresh, then threshold
    reuse) with the kernels, and again with the twins on the same CUDA
    tensors, for ``rgc`` (arena, and per leaf: 3a), ``trimmed_topk``
-   (arena, and per leaf: 3b) and ``sampled_bsearch`` with
-   ``fuse_accumulate`` off and on: params, residual, momentum, thresholds
-   and packed messages bitwise equal; sampled fused equal to sampled
-   per-leaf accumulation; and after one update, per leaf (3a) equal to
-   arena (default);
-5. five paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
+   (arena, and per leaf: 3b), ``sampled_bsearch`` with
+   ``fuse_accumulate`` off and on, ``rgc_quant`` and
+   ``"factor_masking+warmup(rgc)"`` with ``local_clip=1.0``: params,
+   residual, momentum, thresholds, phases and packed messages bitwise
+   equal; sampled fused equal to sampled per-leaf accumulation; and
+   after one update, per leaf (3a) equal to arena (default);
+5. seven paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
    8 steps each of a seeded synthetic stream (batch 20 x seq 35): the
    default (``rgc``), 2a (``optimizer="sampled_bsearch"``), 2b (the
-   same with ``fuse_accumulate=True``), 3a (``fuse_leaves=False``) and
-   3b (``optimizer="trimmed_topk", fuse_leaves=False``). Kernel launch
+   same with ``fuse_accumulate=True``), 3a (``fuse_leaves=False``),
+   3b (``optimizer="trimmed_topk", fuse_leaves=False``), 4a
+   (``optimizer="rgc_quant"``: the embedding and output layer in the
+   arena, the four LSTM matrices through ``quantized(threshold_bsearch)``
+   per leaf, whose phases must be 0 again after the 8 steps) and 4b
+   (``optimizer="factor_masking+warmup(rgc)"``, ``local_clip=1.0``,
+   ``warmup_steps_per_stage=2``: its density per step must follow the
+   four DGC warm-up stages, two steps each). Kernel launch
    counts and the selectors' branch counts (exact compaction after a
    bucket overflow, short pick; arena and per leaf) are zeroed just before
    each path and read just after; every loss must be finite, each path
@@ -78,11 +94,15 @@ the JAX package. Phases, each fatal on failure:
    buffer, each rank's launches per step the phase-5 default path's
    (the same kernels; the same counts for those whose counts do not
    depend on the data; the exact compactions equal to the overflow
-   branches; step 1 equal to a one-worker run on rank 0's rows); path 3a
+   branches; step 1 equal to a one-worker run on rank 0's rows); path 4a
+   (2 steps): kernels == twins, ranks' params equal, and
+   ``per_leaf_allgather`` == ``fused_allgather``; path 3a
    with ``bucketed_allgather`` (at least 3 buckets) and
    ``per_leaf_allgather`` == ``fused_allgather``; at p = 4
    (``("node", "local") = (2, 2)``) ``hierarchical`` with either intra
-   axis == ``fused_allgather``; one rank over NCCL == no mesh. Prints the
+   axis == ``fused_allgather``, and path 4a (2 steps) with
+   ``hierarchical`` == ``fused_allgather``; one rank over NCCL == no
+   mesh. Prints the
    ``WallClockTimer`` stage split (ms per step and share per stage, the
    counters, the median step) at p = 1 and p = 2, and each rank's peak
    device memory;
@@ -860,6 +880,89 @@ def phase_leaf_kernels(results: dict) -> None:
           "first survivors' values and indices, or returns both U' and V'")
 
 
+# phase 3b: the quantized selectors' leaf sizes (the four LSTM matrices
+# of path 4a and the embedding-sized leaf) and the main path's density
+QUANT_LEAVES = (9_000_000, 15_000_000)
+QUANT_DENSITY = 0.001
+
+
+def _quant_cases(gen, dev) -> list:
+    """(label, flat leaf) for phase 3b: seeded normal leaves at each size;
+    a 9M leaf of ±0.0 with 1% nonzero entries; and one where only 100
+    elements are positive, so phase 0 finds fewer than k (and ±0.0
+    sits among the negatives)."""
+    import torch
+    n = QUANT_LEAVES[0]
+    cases = [(f"normal n={m:,}", torch.randn(m, generator=gen, device=dev))
+             for m in QUANT_LEAVES]
+    x = torch.randn(n, generator=gen, device=dev)
+    keep = torch.rand(n, generator=gen, device=dev) < 0.01
+    sign = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                       -1.0, 1.0)
+    cases.append((f"signed zeros n={n:,}", torch.where(keep, x, 0.0) * sign))
+    y = -torch.randn(n, generator=gen, device=dev).abs()
+    y[torch.randperm(n, generator=gen, device=dev)[:100]] *= -1.0
+    y[torch.rand(n, generator=gen, device=dev) < 0.2] = -0.0
+    cases.append((f"100 positives n={n:,}", y))
+    return cases
+
+
+def phase_quant_forms() -> None:
+    """The quantized search forms (``ops.threshold_binary_search_quant``,
+    ``ops.trimmed_topk_quant``) with the kernels and with the twins, in
+    both phases, on the full-width leaves and two skewed ones: indices,
+    count, overflow and the quantized values bitwise, and bitwise equal
+    to the plain ``selection.*_quant`` on the same leaf. Each form's time
+    on the normal leaves (phase 0) beside the plain version's."""
+    import torch
+    from repro_torch.core import selection
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segmented as kseg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    forms = ("threshold_binary_search_quant", "trimmed_topk_quant")
+    for label, x in _quant_cases(gen, dev):
+        k = math.ceil(QUANT_DENSITY * x.numel())
+        for phase in (0, 1):
+            ph = torch.tensor(phase, dtype=torch.int32, device=dev)
+            for form in forms:
+                before = dict(kseg.launches)
+                got = getattr(ops, form)(x, k, ph)
+                used = {n: kseg.launches[n] - before[n] for n in before
+                        if kseg.launches[n] != before[n]}
+                with _twins_patched():
+                    want = getattr(ops, form)(x, k, ph)
+                plain = getattr(selection, form)(x, k, ph)
+                torch.cuda.synchronize()
+                same = all(_same_bits(a, b) for a, b in zip(got, want))
+                as_plain = all(_same_bits(a, b) for a, b in zip(got, plain))
+                n_pos = int((selection._signed_score(x, ph) > 0).sum())
+                print(f"[quant] {form} {label} phase {phase}: kernels and "
+                      f"twins {'equal' if same else 'DIFFER'}, kernels and "
+                      f"plain selection.{form} "
+                      f"{'equal' if as_plain else 'DIFFER'}; count "
+                      f"{int(got.count):,} of k={k:,} ({n_pos:,} of the "
+                      f"phase's sign), mean {float(got.values[0]):.6g}, "
+                      f"launches {used}")
+                if not same:
+                    _fail(f"ops.{form} differs between the kernels and the "
+                          f"twins on {label} phase {phase}")
+                if not as_plain:
+                    _fail(f"ops.{form} differs from selection.{form} on "
+                          f"{label} phase {phase}")
+                if not used:
+                    _fail(f"ops.{form} launched no kernel on {label}")
+                if label.startswith("normal") and phase == 0:
+                    ms = cuda_ms(lambda: getattr(ops, form)(x, k, ph), 5)
+                    plain_ms = cuda_ms(
+                        lambda: getattr(selection, form)(x, k, ph), 3)
+                    print(f"[quant] {form} {label} k={k:,}: kernels "
+                          f"{ms:.4f} ms per call (host loop included); "
+                          f"plain selection.{form} {plain_ms:.4f} ms")
+
+
 def _full_width_tree(gen, dev, scale: float):
     import torch
     from repro_torch.configs import paper_lstm
@@ -926,12 +1029,12 @@ def phase_sync() -> None:
     grads = [_full_width_tree(gen, dev, 1e-3) for _ in range(2)]
     lr = torch.tensor(0.1, dtype=torch.float32, device=dev)
 
-    def run(optimizer, fuse_leaves, fuse_accumulate):
+    def run(optimizer, fuse_leaves, fuse_accumulate, kw):
         """(params, state, messages) after the two updates, and (params,
         state) after the first."""
         sync = build_gradient_sync(optimizer, device=dev,
                                    fuse_leaves=fuse_leaves,
-                                   fuse_accumulate=fuse_accumulate)
+                                   fuse_accumulate=fuse_accumulate, **kw)
         sent = []
         gather = sync.transport.allgather
 
@@ -969,17 +1072,21 @@ def phase_sync() -> None:
                      + list(zip(flat(sa), flat(sb))) + list(zip(ma, mb)))
 
     kept = {}
-    for optimizer, fuse_leaves, fuse in (
-            ("rgc", True, False), ("trimmed_topk", True, False),
-            ("sampled_bsearch", True, False),
-            ("sampled_bsearch", True, True), ("rgc", False, False),
-            ("trimmed_topk", False, False)):
+    for optimizer, fuse_leaves, fuse, kw in (
+            ("rgc", True, False, {}), ("trimmed_topk", True, False, {}),
+            ("sampled_bsearch", True, False, {}),
+            ("sampled_bsearch", True, True, {}), ("rgc", False, False, {}),
+            ("trimmed_topk", False, False, {}),
+            ("rgc_quant", True, False, {}),
+            ("factor_masking+warmup(rgc)", True, False,
+             {"local_clip": 1.0})):
         label = (f"{optimizer} fuse_leaves={fuse_leaves} "
-                 f"fuse_accumulate={fuse}")
+                 f"fuse_accumulate={fuse}"
+                 + "".join(f" {k}={v}" for k, v in kw.items()))
         before = dict(kseg.launches)
         took = dict(common.branches)
         t0 = time.perf_counter()
-        with_kernels = run(optimizer, fuse_leaves, fuse)
+        with_kernels = run(optimizer, fuse_leaves, fuse, kw)
         t_k = time.perf_counter() - t0
         used = {k: kseg.launches[k] - before[k] for k in before
                 if kseg.launches[k] != before[k]}
@@ -987,7 +1094,7 @@ def phase_sync() -> None:
         before = dict(kseg.launches)
         with _twins_patched():
             t0 = time.perf_counter()
-            with_twins = run(optimizer, fuse_leaves, fuse)
+            with_twins = run(optimizer, fuse_leaves, fuse, kw)
             t_p = time.perf_counter() - t0
         if kseg.launches != before:
             _fail("the twin run launched a kernel")
@@ -998,10 +1105,11 @@ def phase_sync() -> None:
             _fail(f"full-width GradientSync.update ({label}) differs "
                   f"between the kernels and the plain twins")
         thr = [float(s.threshold) for s in tree.flatten(with_kernels[1])[0]]
-        print(f"[sync] {label}: params, residual, momentum, thresholds and "
-              f"{len(with_kernels[2])} packed messages bitwise equal; "
-              f"thresholds {thr}")
-        if optimizer != "trimmed_topk":
+        phases = [int(s.phase) for s in tree.flatten(with_kernels[1])[0]]
+        print(f"[sync] {label}: params, residual, momentum, thresholds, "
+              f"phases and {len(with_kernels[2])} packed messages bitwise "
+              f"equal; thresholds {thr}; phases {phases}")
+        if optimizer in ("rgc", "sampled_bsearch"):
             kept[(optimizer, fuse_leaves, fuse)] = with_kernels
         del with_twins
     if not bitwise(kept[("sampled_bsearch", True, False)],
@@ -1035,15 +1143,25 @@ PATHS = (
     ("3a", "3a rgc per leaf", {"fuse_leaves": False}, LEAF_KERNELS),
     ("3b", "3b trimmed_topk per leaf",
      {"optimizer": "trimmed_topk", "fuse_leaves": False}, LEAF_KERNELS),
+    ("4a", "4a rgc_quant", {"optimizer": "rgc_quant"},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt", "count_gt",
+      "abs_sum_max", "compact_gt", "residual_update")),
+    ("4b", "4b factor_masking+warmup(rgc) local_clip",
+     {"optimizer": "factor_masking+warmup(rgc)", "local_clip": 1.0,
+      "warmup_steps_per_stage": 2},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+      "residual_update")),
 )
+# path 4b's density per step: each DGC warm-up stage for two steps
+RAMP_4B = (0.25, 0.25, 0.0625, 0.0625, 0.015625, 0.015625, 0.004, 0.004)
 
 
 def _selection_spies(buckets: list, plain: dict):
     """A context that records what the selectors do on the card: every
     bucketed compaction's (row counts, bucket size) into ``buckets``, and
     into ``plain`` each call of the plain whole-vector selections
-    (``selection.threshold_filter``, ``selection._pad_topk``) on a CUDA
-    tensor. A row over the largest bucket of a ``seg_compact_gt`` launch
+    (``selection.threshold_filter``, ``selection._pad_topk`` and the
+    first-survivors filter both plain filters share) on a CUDA tensor. A row over the largest bucket of a ``seg_compact_gt`` launch
     overflows its slot's bucket, so the count is a lower bound there."""
     import contextlib
     from unittest import mock
@@ -1070,7 +1188,7 @@ def _selection_spies(buckets: list, plain: dict):
         kseg, "seg_compact_gt", spy_compact(kseg.seg_compact_gt)))
     stack.enter_context(mock.patch.object(
         compact, "compact_gt", spy_compact(compact.compact_gt)))
-    for name in ("threshold_filter", "_pad_topk"):
+    for name in ("threshold_filter", "_pad_topk", "_first_survivors"):
         plain_fn = getattr(selection, name)
         # the modules that hold the plain function itself (ops has its own
         # threshold_filter: the composition of the kernels)
@@ -1081,8 +1199,60 @@ def _selection_spies(buckets: list, plain: dict):
     return stack
 
 
+def _host_sync_spy(count: list):
+    """A context that adds to ``count[0]`` each host synchronisation
+    (``bool``, ``int``, ``float``, ``.item()``, ``.tolist()`` of a CUDA
+    tensor) made inside a quantized compressor's ``compress``: the cold
+    searches of path 4a's quantized leaves and their filters."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.core import compressors
+
+    def counting(fn):
+        def spy(self, *args, **kw):
+            if self.is_cuda:
+                count[0] += 1
+            return fn(self, *args, **kw)
+        return spy
+    compress = compressors.Quantized.compress
+
+    def spied(self, *args, **kw):
+        with contextlib.ExitStack() as stack:
+            for name in ("__bool__", "__int__", "__float__", "item",
+                         "tolist"):
+                stack.enter_context(mock.patch.object(
+                    torch.Tensor, name, counting(getattr(torch.Tensor,
+                                                         name))))
+            return compress(self, *args, **kw)
+    return mock.patch.object(compressors.Quantized, "compress", spied)
+
+
+def _check_4a(trainer, state, rec, syncs) -> None:
+    """Path 4a: the four quantized leaves' phase after its steps (0 after
+    an even number of flips), and the host synchronisations of their
+    cold searches per step, as ``_host_sync_spy`` counted them."""
+    from repro_torch.core import tree
+    sync = trainer._sync
+    flat_p = dict(tree.flatten_with_paths(state.params))
+    phases = {path: int(st.phase)
+              for path, st in tree.flatten_with_paths(state.rgc)
+              if sync._leaf_compressor(sync.policy.compressor_for(
+                  path, flat_p[path]), path).quantized}
+    print(f"[train] 4a rgc_quant: quantized leaves' phase after "
+          f"{len(rec)} steps {phases}; host syncs of their searches per "
+          f"step (counted) {syncs}; count_gt launches per step "
+          f"{[c.get('count_gt', 0) for _, _, _, c in rec]}")
+    if not all(syncs):
+        _fail(f"path 4a: no host sync counted in a quantized search: "
+              f"{syncs}")
+    if len(phases) != 4 or any(phases.values()):
+        _fail(f"path 4a: quantized leaves' phases {phases}, want four 0s")
+
+
 def phase_train(results: dict, profile: int) -> list[dict]:
-    """The five paths; returns the default path's kernel launches per
+    """The seven paths; returns the default path's kernel launches per
     step."""
     import torch
     from repro_torch.configs import paper_lstm
@@ -1110,14 +1280,17 @@ def phase_train(results: dict, profile: int) -> list[dict]:
             counts = {k: v - last[1].get(k, 0)
                       for k, v in kseg.launches.items() if v}
             rec.append((step, loss, now - last[0], counts))
+            densities.append(density)
+            syncs.append(host_syncs[0])
+            host_syncs[0] = 0
             last[0], last[1] = now, dict(kseg.launches)
 
         for counts in (kseg.launches, common.branches):
             for k in counts:
                 counts[k] = 0
-        buckets, plain = [], {}
+        buckets, plain, densities, syncs, host_syncs = [], {}, [], [], [0]
         last[0] = time.perf_counter()
-        with _selection_spies(buckets, plain):
+        with _selection_spies(buckets, plain), _host_sync_spy(host_syncs):
             state = trainer.run(state, data, steps, log_every=0,
                                 on_metrics=on_metrics)
         total = dict(kseg.launches)
@@ -1143,6 +1316,12 @@ def phase_train(results: dict, profile: int) -> list[dict]:
         for name in needs:
             if total[name] <= 0:
                 _fail(f"{name} was not launched on path {label}")
+        if key == "4a":
+            _check_4a(trainer, state, rec, syncs)
+        if key == "4b":
+            print(f"[train] {label}: density per step {densities}")
+            if tuple(densities) != RAMP_4B:
+                _fail(f"path 4b's densities {densities}, not {RAMP_4B}")
         for k, v in total.items():
             per_path[k][key] = v
         if key == "default":
@@ -1166,6 +1345,7 @@ def phase_train(results: dict, profile: int) -> list[dict]:
 DIST_STEPS = 4
 DIST_BATCH = 40            # global: 20 rows per rank at p = 2, as phase 5
 STEPS_3A = 3
+STEPS_4A = 2
 BUCKET_BYTES_3A = 300_000  # four buckets of path 3a's six messages
 # the default path's kernels whose launches per step do not depend on the
 # data (the search's counts and the exact compactions do)
@@ -1186,12 +1366,12 @@ def _bits(t):
 
 
 def _leaves(params, rgc=None) -> dict:
-    """A params tree and, if given, the residual, momentum and threshold
-    of every leaf of its ``LeafState`` tree, by path."""
+    """A params tree and, if given, the residual, momentum, threshold and
+    phase of every leaf of its ``LeafState`` tree, by path."""
     from repro_torch.core import tree
     out = {f"p{k}": v for k, v in tree.flatten_with_paths(params)}
     for k, st in tree.flatten_with_paths(rgc or {}):
-        for fld in ("residual", "momentum", "threshold"):
+        for fld in ("residual", "momentum", "threshold", "phase"):
             out[f"s{k}.{fld}"] = getattr(st, fld)
     return out
 
@@ -1333,8 +1513,9 @@ def _replay(mesh, overrides: dict, log: dict, timer=None) -> dict:
 def _dist_p2(rank: int, mesh) -> dict:
     """World 2, ("data",) = 2: the default path with the kernels (stage
     timer on; ranks' params and the gathered rows checked after every
-    step), its steps replayed with the twins; then path 3a, its steps
-    replayed with the bucketed and per-leaf transports."""
+    step), its steps replayed with the twins; path 4a, its steps replayed
+    with the twins and with the per-leaf transport; then path 3a, its
+    steps replayed with the bucketed and per-leaf transports."""
     import torch
     from repro_torch.core import WallClockTimer
     out: dict = {"checks": {}}
@@ -1369,6 +1550,20 @@ def _dist_p2(rank: int, mesh) -> dict:
     del state, log, twins
     torch.cuda.empty_cache()
 
+    # path 4a: kernels == twins, ranks equal, per leaf == fused
+    kw = {"optimizer": "rgc_quant"}
+    state, out["4a"], log = _dist_run(mesh, kw, STEPS_4A)
+    fused = _leaves(state.params, state.rgc)
+    checks["4a_ranks_equal"] = _ranks_equal(
+        list(_leaves(state.params).values()))
+    with _twins_patched():
+        twins = _replay(mesh, kw, log)
+    checks["4a_kernels_equal_twins"] = _agree(_same(fused, twins))
+    got = _replay(mesh, {**kw, "transport": "per_leaf_allgather"}, log)
+    checks["4a_per_leaf_allgather_equal_fused"] = _agree(_same(got, fused))
+    del state, log, twins, got
+    torch.cuda.empty_cache()
+
     kw = {"fuse_leaves": False}
     state, _, log = _dist_run(mesh, kw, STEPS_3A)
     fused = _leaves(state.params, state.rgc)
@@ -1383,8 +1578,11 @@ def _dist_p2(rank: int, mesh) -> dict:
 
 
 def _dist_p4(rank: int, mesh) -> dict:
-    """World 4, ("node", "local") = (2, 2), default path: the fused
-    transport's steps replayed with both hierarchical ones."""
+    """World 4, ("node", "local") = (2, 2): the default path's fused
+    steps replayed with both hierarchical transports, then path 4a's
+    (quantized leaves' ``[count | indices | mean]`` messages through the
+    int32 reassembly) with ``hierarchical``."""
+    import torch
     out: dict = {"checks": {}}
     state, out["fused_allgather"], log = _dist_run(mesh, {}, 3)
     fused = _leaves(state.params, state.rgc)
@@ -1394,6 +1592,16 @@ def _dist_p4(rank: int, mesh) -> dict:
                       ("hierarchical_intra_node", {"intra_axis": "node"})):
         got = _replay(mesh, {"transport": "hierarchical", **kw}, log)
         out["checks"][f"{label}_equal_fused"] = _agree(_same(got, fused))
+    del state, log, fused, got
+    torch.cuda.empty_cache()
+
+    kw = {"optimizer": "rgc_quant"}
+    state, _, log = _dist_run(mesh, kw, STEPS_4A)
+    fused = _leaves(state.params, state.rgc)
+    out["checks"]["4a_ranks_equal"] = _ranks_equal(
+        list(_leaves(state.params).values()))
+    got = _replay(mesh, {**kw, "transport": "hierarchical"}, log)
+    out["checks"]["4a_hierarchical_equal_fused"] = _agree(_same(got, fused))
     return out
 
 
@@ -1539,6 +1747,15 @@ def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
                     bad.append(f"p=2 rank {r} step {s}: {k} not launched")
         if not all(math.isfinite(x["loss"]) for x in res["default"]):
             bad.append(f"p=2 rank {r}: non-finite loss")
+        for s, rec in enumerate(res["4a"], 1):
+            print(f"[dist] p=2 rank {r} 4a rgc_quant step {s}: loss "
+                  f"{rec['loss']:.6f} time {rec['s'] * 1e3:.2f} ms launches "
+                  f"{rec['launches']} branches {rec['branches']}")
+            if not math.isfinite(rec["loss"]):
+                bad.append(f"p=2 rank {r} 4a step {s}: non-finite loss")
+            for k in next(p[3] for p in PATHS if p[0] == "4a"):
+                if not rec["launches"].get(k):
+                    bad.append(f"p=2 rank {r} 4a step {s}: {k} not launched")
     if p2[0]["default"][0]["launches"] != rec1[0]["launches"]:
         bad.append(f"step 1 launches: p=2 rank 0 "
                    f"{p2[0]['default'][0]['launches']}, p=1 on its rows "
@@ -1568,8 +1785,10 @@ def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
     for name in results:
         results[name]["launches"]["default_p2_rank0"] = total.get(name, 0)
     print(f"[dist] OK: p=2 kernels == twins, ranks equal every step, "
-          f"gathered rows == every rank's buffer; 3a bucketed and per-leaf "
-          f"== fused; p=4 hierarchical (both intra axes) == fused; NCCL "
+          f"gathered rows == every rank's buffer; 4a kernels == twins, "
+          f"ranks equal, per-leaf == fused; 3a bucketed and per-leaf "
+          f"== fused; p=4 hierarchical (both intra axes) == fused, 4a "
+          f"hierarchical == fused; NCCL "
           f"world 1 == no mesh")
 
 
@@ -1610,6 +1829,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_kernels(results)
     phase_sampled_kernels(results)
     phase_leaf_kernels(results)
+    phase_quant_forms()
     phase_sync()
     default_steps = phase_train(results, args.profile)
     phase_dist(results, default_steps, smi)

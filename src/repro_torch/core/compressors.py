@@ -1,20 +1,23 @@
 """Compressor implementations (RedSync §5.2), registry-addressable.
 
-Port of ``src/repro/core/compressors.py``: ``dense``, ``trimmed_topk``,
-``threshold_bsearch`` (alias ``threshold_binary_search``) and
-``sampled_bsearch`` with the segmented-arena protocol (``segment_spec`` /
-``finish_segments``) and §5.2.2 threshold reuse (refresh every
-``interval`` steps, warm-started bisection in between refreshes).
-``exact_topk`` and the ``quantized(...)`` wrapper wait (ROADMAP.md).
+Port of ``src/repro/core/compressors.py``: ``dense``, ``exact_topk``,
+``trimmed_topk``, ``threshold_bsearch`` (alias
+``threshold_binary_search``) and ``sampled_bsearch`` with the
+segmented-arena protocol (``segment_spec`` / ``finish_segments``) and
+§5.2.2 threshold reuse (refresh every ``interval`` steps, warm-started
+bisection in between refreshes), and the §5.2.3 ``quantized(<inner>)``
+wrapper (a bare ``quantized`` wraps ``exact_topk``).
 
 The reference's ``backend`` parameter ("jnp" | "pallas") is accepted
 and ignored: in the port the tensor's device picks the implementation
 (plain PyTorch on the CPU, the CUDA kernels on the card), and both
 compute what the reference's default ``jnp`` backend computes. Per leaf,
-``trimmed_topk`` and ``threshold_bsearch`` compress through the kernel
-compositions of ``kernels.ops`` on both devices (the kernels' plain
-twins on the CPU); ``sampled_bsearch`` through a one-slot arena on the
-card and ``selection.sampled_threshold_search`` on the CPU.
+``trimmed_topk`` and ``threshold_bsearch`` compress, and select their
+quantized variants, through the kernel compositions of ``kernels.ops``
+on both devices (the kernels' plain twins on the CPU);
+``sampled_bsearch`` through a one-slot arena on the card and
+``selection.sampled_threshold_search`` on the CPU; ``exact_topk`` sorts
+(``selection.exact_topk``) on both.
 """
 from __future__ import annotations
 
@@ -75,6 +78,21 @@ class Dense(_Base):
             "dense leaves are synchronized via Transport.allreduce_mean")
 
 
+class ExactTopK(_Base):
+    """The radixSelect baseline: exact |x| top-k (capacity == k)."""
+
+    name = "exact_topk"
+
+    def capacity(self, k: int) -> int:
+        return k
+
+    def compress(self, flat_v, k, state):
+        return sel_lib.exact_topk(flat_v, k), state
+
+    def quant_select(self, flat_v, k, phase) -> Selected:
+        return sel_lib.exact_topk_quant(flat_v, k, phase)
+
+
 class TrimmedTopK(_Base):
     """Alg 2: statistics-guided trimming, then top-k over survivors."""
 
@@ -94,6 +112,10 @@ class TrimmedTopK(_Base):
     def segment_spec(self, geom, states):
         from repro_torch.kernels import segmented as kseg
         return kseg.SegmentSpec(alg="trimmed", eps=self.eps)
+
+    def quant_select(self, flat_v, k, phase) -> Selected:
+        from repro_torch.kernels import ops as kops
+        return kops.trimmed_topk_quant(flat_v, k, phase, eps=self.eps)
 
 
 class ThresholdBSearch(_Base):
@@ -137,6 +159,13 @@ class ThresholdBSearch(_Base):
     def finish_segments(self, states, thr):
         return [st._replace(threshold=thr[i], interval=st.interval + 1)
                 for i, st in enumerate(states)]
+
+    def quant_select(self, flat_v, k, phase) -> Selected:
+        # the alternating sign phase rules out threshold sharing
+        # (§5.2.3): the quantized variant always re-searches, cold
+        from repro_torch.kernels import ops as kops
+        return kops.threshold_binary_search_quant(flat_v, k, phase,
+                                                  eps=self.eps)
 
 
 class SampledBSearch(ThresholdBSearch):
@@ -198,12 +227,46 @@ class SampledBSearch(ThresholdBSearch):
             strides=self.segment_strides(geom),
             capacities=tuple(self.capacity(k) for k in geom.seg_ks))
 
+    # no quantized variant: the single-mean payload is incompatible with
+    # the sampled capacity headroom (the count could exceed 2k)
+    quant_select = None
+
+
+class Quantized(_Base):
+    """§5.2.3 wrapper: same-signed selection (top-k, then bottom-k, by
+    ``LeafState.phase``) and a one-scalar-mean payload."""
+
+    quantized = True
+
+    def __init__(self, inner: _Base):
+        if getattr(inner, "quantized", False):
+            raise ValueError("cannot quantize an already-quantized "
+                             f"compressor {inner.name!r}")
+        if not callable(getattr(inner, "quant_select", None)):
+            raise ValueError(
+                f"compressor {inner.name!r} has no quantized variant")
+        self.inner = inner
+        self.name = f"quantized({inner.name})"
+
+    def capacity(self, k: int) -> int:
+        return self.inner.capacity(k)
+
+    def compress(self, flat_v, k, state: LeafState
+                 ) -> tuple[Selected, LeafState]:
+        sel = self.inner.quant_select(flat_v, k, state.phase)
+        return sel, state._replace(phase=(state.phase + 1) % 2)
+
 
 # --- registration ----------------------------------------------------------
 
 @registry.register(registry.COMPRESSOR, "dense")
 def _dense(**_: Any) -> Dense:
     return Dense()
+
+
+@registry.register(registry.COMPRESSOR, "exact_topk")
+def _exact(**_: Any) -> ExactTopK:
+    return ExactTopK()
 
 
 @registry.register(registry.COMPRESSOR, "trimmed_topk")
@@ -229,3 +292,11 @@ def _sampled(bsearch_interval: int = 5, bsearch_eps: float = 1e-3,
     return SampledBSearch(interval=bsearch_interval, eps=bsearch_eps,
                           warm_start=warm_start,
                           tolerance=sampled_tolerance)
+
+
+@registry.register(registry.COMPRESSOR, "quantized")
+def _quantized(inner: _Base | None = None, **params: Any) -> Quantized:
+    # bare "quantized" defaults to the exact-top-k inner selector
+    return Quantized(inner if inner is not None
+                     else registry.make(registry.COMPRESSOR, "exact_topk",
+                                        **params))

@@ -1,18 +1,28 @@
 """Correction implementations (DGC, Lin et al. 1712.01887).
 
-Port of ``src/repro/core/correction.py``: ``CorrectionBase``,
-``MomentumCorrection`` (momentum correction with its own momentum factor
-masking, plus its flat-arena hooks) and the ``split_corrections`` spec
-grammar. ``factor_masking``, ``local_clip`` and ``warmup`` are not
-ported yet; their names stay registered so every spec string parses
-exactly as in the reference, and building one raises.
+Port of ``src/repro/core/correction.py``: ``CorrectionBase``, the four
+DGC corrections ``GradientSync.update`` runs ahead of the compressor —
+
+* ``momentum``: momentum correction, with momentum factor masking of its
+  own velocity, plus its flat-arena hooks;
+* ``factor_masking`` (alias ``masking``): clear U at communicated
+  coordinates;
+* ``local_clip`` (alias ``clip``): scale the local gradient so its norm
+  stays under N^{-1/2} of the global clip threshold;
+* ``warmup``: the §5.7 density ramp (``core.schedule``) —
+
+and the ``split_corrections`` spec grammar.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from . import registry
-from .residual import LeafState, accumulate, mask_momentum
+from .residual import (LeafState, accumulate, local_clip_scale,
+                       mask_momentum, pinned_product)
+from .schedule import DGC_WARMUP, DensitySchedule
 
 
 class CorrectionBase:
@@ -77,6 +87,57 @@ class MomentumCorrection(CorrectionBase):
         return True
 
 
+class FactorMasking(CorrectionBase):
+    """Standalone DGC momentum factor masking: clear U at communicated
+    coordinates (a no-op on a 0-d velocity placeholder)."""
+
+    name = "factor_masking"
+    arena_mask_momentum = True
+
+    def on_communicated(self, state, indices):
+        return mask_momentum(state, indices)
+
+    def arena_safe(self):
+        return True
+
+
+class LocalClip(CorrectionBase):
+    """DGC local gradient clipping (§5.6), before residual accumulation.
+
+    The squared norm is the leaves' pinned sums of g², added in tree
+    order by Python's ``sum`` (from int 0), and each leaf is scaled by
+    a separately rounded product, as in the reference."""
+
+    name = "local_clip"
+
+    def __init__(self, clip_norm: float = 1.0):
+        self.clip_norm = clip_norm
+
+    def on_grads(self, grads, params, num_workers):
+        from .selection import pinned_sum
+        sq = sum(pinned_sum(g.to(torch.float32) ** 2) for g in grads)
+        scale = local_clip_scale(sq, self.clip_norm, num_workers)
+        # JAX promotes a bf16 leaf times the f32 scale to f32; torch
+        # would keep bf16 for a 0-d scale
+        return [pinned_product(g.to(torch.promote_types(g.dtype, scale.dtype)),
+                               scale) for g in grads]
+
+
+class Warmup(CorrectionBase):
+    """Sparsity warm-up ramp (§5.7): owns the density of each step through
+    a ``DensitySchedule``; the trainer asks
+    ``GradientSync.scheduled_density(step)``."""
+
+    name = "warmup"
+    DEFAULT_STEPS_PER_STAGE = 25
+
+    def __init__(self, schedule: DensitySchedule):
+        self.schedule = schedule
+
+    def density_at(self, step, target):
+        return self.schedule.density_at(step)
+
+
 # --- spec grammar ----------------------------------------------------------
 
 def _split_top_plus(spec: str) -> tuple[str, str | None]:
@@ -135,15 +196,30 @@ def _momentum(momentum: float = 0.9, nesterov: bool = False,
     return MomentumCorrection(momentum=momentum, nesterov=nesterov)
 
 
-def _not_ported(name: str):
-    def factory(**_: Any):
-        raise NotImplementedError(
-            f"correction {name!r} is not ported to repro_torch yet "
-            f"(see ROADMAP.md)")
-    return factory
+@registry.register(registry.CORRECTION, "factor_masking")
+def _factor_masking(**_: Any) -> FactorMasking:
+    return FactorMasking()
 
 
-for _name in ("factor_masking", "local_clip", "warmup"):
-    registry.register(registry.CORRECTION, _name)(_not_ported(_name))
+@registry.register(registry.CORRECTION, "local_clip")
+def _local_clip(local_clip: float | None = None, **_: Any) -> LocalClip:
+    return LocalClip(clip_norm=1.0 if local_clip is None else local_clip)
+
+
+@registry.register(registry.CORRECTION, "warmup")
+def _warmup(density: float = 0.001, warmup_steps_per_stage: int = 0,
+            dense_warmup: bool = False,
+            warmup_stages: tuple[float, ...] = DGC_WARMUP,
+            **_: Any) -> Warmup:
+    # a spec that names warmup asks for a ramp: an unset stage length
+    # falls back to the default
+    steps = (warmup_steps_per_stage if warmup_steps_per_stage > 0
+             else Warmup.DEFAULT_STEPS_PER_STAGE)
+    return Warmup(DensitySchedule(target=density,
+                                  warmup_steps_per_stage=steps,
+                                  stages=tuple(warmup_stages),
+                                  dense_warmup=dense_warmup))
+
+
 registry.register_alias(registry.CORRECTION, "clip", "local_clip")
 registry.register_alias(registry.CORRECTION, "masking", "factor_masking")

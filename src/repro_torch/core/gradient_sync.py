@@ -24,12 +24,18 @@ arena's selection statistics, instead of per leaf followed by a gather
 and a separate statistics pass. In eager PyTorch both compute the same
 separately rounded products, so the two are bitwise equal.
 
+``optimizer`` is ``"rgc"`` (§5.5 size-based dispatch), ``"rgc_quant"``
+(the same, each non-dense compressor wrapped in §5.2.3 quantization but
+on the ``no_quant_paths`` leaves), ``"dense"`` or any registered
+compressor spec, optionally prefixed by ``+``-joined corrections. Spec
+corrections are additive: the ``momentum`` / ``local_clip`` fields stay
+the switches for their corrections whether or not the spec names them.
+
 ``update`` is functional: it reads its inputs and returns new tensors.
 Ported here: the ``sequential`` schedule, all five transports (over the
 process groups of a ``launch.mesh.Mesh`` when ``sync_axes`` name
-workers), the ``momentum`` correction, the ``dense`` / ``trimmed_topk``
-/ ``threshold_bsearch`` / ``sampled_bsearch`` compressors,
-``fuse_accumulate`` and bf16 residuals. The rest waits (ROADMAP.md).
+workers), the four corrections, every compressor, ``fuse_accumulate``
+and bf16 residuals. The overlap schedules wait (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from . import arena
 from . import registry
 from . import tree
 from .compressors import _Base as _CompressorBase  # noqa: F401 (registration)
-from .correction import MomentumCorrection, split_corrections
+from .correction import LocalClip, MomentumCorrection, split_corrections
 from .dispatch import FixedPolicy
 from .instrument import NullTimer
 from .overlap import SequentialSchedule, make_schedule
@@ -81,6 +87,9 @@ class GradientSync:
     momentum: float = 0.9
     nesterov: bool = False
     weight_decay: float = 0.0
+    local_clip: float | None = None
+    quantize: bool = False
+    no_quant_paths: tuple[str, ...] = ("lm_head", "embed")
     residual_dtype: Any = torch.float32
     fuse_leaves: bool = True
     # one fused residual-update+stats pass per arena instead of per leaf
@@ -100,6 +109,8 @@ class GradientSync:
             self.schedule = SequentialSchedule()
         corr = list(self.corrections or ())
         names = {c.name for c in corr}
+        if self.local_clip is not None and "local_clip" not in names:
+            corr.insert(0, LocalClip(self.local_clip))
         if self.momentum and "momentum" not in names:
             corr.append(MomentumCorrection(self.momentum, self.nesterov))
         self.corrections = tuple(corr)
@@ -114,6 +125,15 @@ class GradientSync:
             self._compressors[name] = registry.make(
                 registry.COMPRESSOR, name, **self.compressor_params)
         return self._compressors[name]
+
+    def _leaf_compressor(self, name: str, path: str):
+        """The §5.2.3 quantization wrap where configured; the output and
+        embedding layers (``no_quant_paths``) are never quantized."""
+        if (self.quantize and name != "dense"
+                and not name.startswith("quantized")
+                and not any(t in path for t in self.no_quant_paths)):
+            return self.compressor(f"quantized({name})")
+        return self.compressor(name)
 
     @property
     def uses_momentum_buffer(self) -> bool:
@@ -153,7 +173,8 @@ class GradientSync:
         self._check_device([p for _, p in flat])
         out = []
         for path, p in flat:
-            comp = self.compressor(self.policy.compressor_for(path, p))
+            comp = self._leaf_compressor(self.policy.compressor_for(path, p),
+                                         path)
             out.append(comp.init_leaf(p, momentum=self.uses_momentum_buffer,
                                       residual_dtype=self.residual_dtype))
         leaf_state = tree.unflatten(tree.structure(params), out)
@@ -182,7 +203,7 @@ class GradientSync:
                 dense.append(i)
                 continue
             k = max(1, int(math.ceil(density * g.numel())))
-            comp = self.compressor(name)
+            comp = self._leaf_compressor(name, paths[i])
             if (self.fuse_leaves and self._arena_ok
                     and getattr(comp, "supports_segmented", False)
                     and not comp.quantized):
@@ -453,8 +474,11 @@ def build_gradient_sync(
     weight_decay: float = 0.0,
     local_clip: float | None = None,
     residual_dtype: Any = torch.float32,
+    no_quant_paths: tuple[str, ...] = ("lm_head", "embed"),
     dense_threshold_bytes: int | None = None,
     trimmed_threshold_bytes: int | None = None,
+    warmup_steps_per_stage: int = 0,
+    dense_warmup: bool = False,
     bucket_bytes: int | None = None,
     intra_axis: str | None = None,
     fuse_leaves: bool = True,
@@ -465,8 +489,12 @@ def build_gradient_sync(
     **compressor_params: Any,
 ) -> GradientSync:
     """Build a ``GradientSync`` from string-addressable component names
-    (the reference's grammar: ``"rgc"``, ``"dense"``, any registered
-    compressor spec, optionally prefixed by ``+``-joined corrections).
+    (the reference's grammar: ``"rgc"``, ``"rgc_quant"``, ``"dense"``,
+    any registered compressor spec, optionally prefixed by ``+``-joined
+    corrections such as ``"factor_masking+warmup(rgc)"``; a
+    corrections-only spec defaults the base to ``"rgc"``).
+    ``warmup_steps_per_stage`` and ``dense_warmup`` parameterize a
+    spec-named ``warmup``.
 
     ``sync_axes`` name the data-parallel axes of ``mesh`` (a
     ``launch.mesh.Mesh``) the step syncs over; no axes is one worker.
@@ -480,17 +508,16 @@ def build_gradient_sync(
     ``device="cpu"`` runs the plain PyTorch path.
     """
     dev = resolve_device(device)
-    if local_clip is not None:
-        raise NotImplementedError(
-            "local_clip is not ported to repro_torch yet (see ROADMAP.md)")
     corr_names, base = split_corrections(optimizer)
     optimizer = base or "rgc"
     corrections = None
     if corr_names:
         corrections = tuple(
             registry.make(registry.CORRECTION, name, momentum=momentum,
-                          nesterov=nesterov, density=density,
-                          **compressor_params)
+                          nesterov=nesterov, local_clip=local_clip,
+                          density=density,
+                          warmup_steps_per_stage=warmup_steps_per_stage,
+                          dense_warmup=dense_warmup, **compressor_params)
             for name in corr_names)
 
     policy_kw = {}
@@ -499,9 +526,11 @@ def build_gradient_sync(
     if trimmed_threshold_bytes is not None:
         policy_kw["trimmed_threshold_bytes"] = trimmed_threshold_bytes
 
-    if optimizer == "rgc":
+    quantize = False
+    if optimizer in ("rgc", "rgc_quant"):
         policy = registry.make(registry.DISPATCH_POLICY, "size_based",
                                **policy_kw)
+        quantize = optimizer == "rgc_quant"
     elif optimizer == "dense":
         policy = FixedPolicy("dense")
     elif registry.contains(registry.COMPRESSOR, optimizer):
@@ -509,9 +538,10 @@ def build_gradient_sync(
         policy = FixedPolicy(optimizer)
     else:
         raise ValueError(
-            f"unknown optimizer {optimizer!r}: expected rgc | dense | a "
-            f"registered compressor {registry.names(registry.COMPRESSOR)}, "
-            f"optionally prefixed by '+'-joined corrections "
+            f"unknown optimizer {optimizer!r}: expected rgc | rgc_quant | "
+            f"dense | a registered compressor "
+            f"{registry.names(registry.COMPRESSOR)}, optionally prefixed "
+            f"by '+'-joined corrections "
             f"{registry.names(registry.CORRECTION)}")
 
     timer = timer if timer is not None else NullTimer()
@@ -529,6 +559,9 @@ def build_gradient_sync(
         momentum=momentum,
         nesterov=nesterov,
         weight_decay=weight_decay,
+        local_clip=local_clip,
+        quantize=quantize,
+        no_quant_paths=tuple(no_quant_paths),
         residual_dtype=residual_dtype,
         fuse_leaves=fuse_leaves,
         fuse_accumulate=fuse_accumulate,

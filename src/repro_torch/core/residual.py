@@ -1,7 +1,6 @@
 """Residual + momentum state for RGC (RedSync §5.7, Algorithm 4).
 
-Port of ``src/repro/core/residual.py`` (``local_clip_scale`` waits with
-the ``local_clip`` correction). Per compressed leaf: residual V,
+Port of ``src/repro/core/residual.py``. Per compressed leaf: residual V,
 momentum-corrected velocity U, the cached bsearch threshold, the
 quantization phase and the threshold-refresh interval counter.
 """
@@ -128,3 +127,16 @@ def accumulate_arena(g2d, v2d, u2d, p2d, *, momentum: float, nesterov: bool,
     if residual_dtype != torch.float32:
         v = v.to(residual_dtype).to(torch.float32)
     return v, u
+
+
+def local_clip_scale(grads_sq_sum: torch.Tensor, clip_norm: float,
+                     num_workers: int) -> torch.Tensor:
+    """DGC local gradient clipping (§5.6): the factor that clips the
+    LOCAL gradient to N^{-1/2} of the global threshold, in f32 as the
+    reference computes it."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32,
+                            device=grads_sq_sum.device)
+    norm = torch.sqrt(grads_sq_sum)
+    limit = f32(clip_norm) / torch.sqrt(f32(num_workers))
+    return torch.minimum(f32(1.0), limit / torch.maximum(norm, f32(1e-12)))

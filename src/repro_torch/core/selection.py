@@ -1,9 +1,10 @@
 """Communication-set selection (RedSync §5.2, Algorithms 2/3).
 
-Port of ``src/repro/core/selection.py`` (the ``*_quant`` variants wait).
-Every selector takes a flat f32 residual vector and returns a
-fixed-capacity ``Selected(indices, values, count)``; padding uses index
-== size and value 0, exactly as the reference.
+Port of ``src/repro/core/selection.py``. Every selector takes a flat f32
+residual vector and returns a fixed-capacity ``Selected(indices, values,
+count)``; padding uses index == size and value 0, exactly as the
+reference. The quantized variants (§5.2.3) select by signed value, top-k
+or bottom-k by ``phase``, and replace the values by their mean.
 
 Bitwise parity with the reference rests on three rules:
 
@@ -127,19 +128,23 @@ def exact_topk(x: torch.Tensor, k: int) -> Selected:
     return _pad_topk(x, x.abs(), k)
 
 
-def trimmed_topk(x: torch.Tensor, k: int, eps: float = 0.2) -> Selected:
-    """Alg 2: walk the ratio ladder until >= k survive, then top-k the
-    survivors (trimmed elements score 0)."""
-    ax = x.abs()
+def _trimmed_score(ax: torch.Tensor, k: int, eps: float) -> torch.Tensor:
+    """Alg 2 on a non-negative score: walk the ratio ladder until >= k
+    survive; trimmed elements score 0."""
     mean, mx = _stats(ax)
-    step = torch.tensor(1, dtype=torch.int32, device=x.device)
+    step = torch.tensor(1, dtype=torch.int32, device=ax.device)
     nnz = (ax > threshold_at(mean, mx, ladder_ratio(step, eps))).sum()
     while bool((nnz < k) & (ladder_ratio(step, eps) > 0.0)):
         step = step + 1
         nnz = (ax > threshold_at(mean, mx, ladder_ratio(step, eps))).sum()
     thr = threshold_at(mean, mx, ladder_ratio(step, eps))
-    trimmed_score = torch.where(ax > thr, ax, _f32(0.0, ax))
-    return _pad_topk(x, trimmed_score, k)
+    return torch.where(ax > thr, ax, _f32(0.0, ax))
+
+
+def trimmed_topk(x: torch.Tensor, k: int, eps: float = 0.2) -> Selected:
+    """Alg 2: walk the ratio ladder until >= k survive, then top-k the
+    survivors (trimmed elements score 0)."""
+    return _pad_topk(x, _trimmed_score(x.abs(), k, eps), k)
 
 
 def search_band(count_at, mean, mx, k: int, eps: float,
@@ -209,11 +214,75 @@ def threshold_filter(x: torch.Tensor, threshold: torch.Tensor,
     """All elements with |x| > threshold, first-``capacity`` in index
     order, padded; ``count`` saturates and ``overflow`` flags the drop."""
     x = x.reshape(-1)
+    return _first_survivors(x, x.abs() > threshold, capacity)
+
+
+def _first_survivors(x: torch.Tensor, mask: torch.Tensor,
+                     capacity: int) -> Selected:
+    """The first ``capacity`` positions of ``mask`` in index order, with
+    the values of ``x`` there; the count saturates at ``capacity``."""
     n = x.numel()
-    mask = x.abs() > threshold
     nnz = mask.sum()
     idx = first_true(mask, capacity, n)
-    vals = torch.where(idx < n, x[idx.clamp(max=n - 1)], _f32(0.0, x))
-    return Selected(idx.to(torch.int32), vals,
+    return Selected(idx.to(torch.int32), gather_values(x, idx),
                     torch.clamp(nnz, max=capacity).to(torch.int32),
                     nnz > capacity)
+
+
+def gather_values(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` at ``idx``, 0 at padding (idx >= x.numel())."""
+    n = x.numel()
+    idx = idx.to(torch.int64)
+    return torch.where(idx < n, x[idx.clamp(max=n - 1)], _f32(0.0, x))
+
+
+# ---------------------------------------------------------------------------
+# Quantized variants (§5.2.3): same-signed communication sets
+# ---------------------------------------------------------------------------
+
+def _signed_score(x: torch.Tensor, phase) -> torch.Tensor:
+    """Score for alternating top/bottom selection: phase 0 ranks the
+    largest values, phase 1 the most negative; the wrong sign scores 0.
+
+    Every zero score is +0.0, as the reference's ``jnp.maximum(y, 0.0)``
+    gives it: ``clamp_min`` keeps a -0.0 input, and a sort that ranks by
+    bit pattern (a radix sort) puts -0.0 below +0.0, so a -0.0 score
+    could reorder the zero-score tail of a top-k, which the reference
+    ranks by index alone. Adding +0.0 turns -0.0 into +0.0 and changes nothing else
+    (NaN stays NaN, as in ``jnp.maximum``).
+    """
+    phase = torch.as_tensor(phase, device=x.device)
+    y = torch.where(phase == 0, x, -x)
+    return torch.clamp_min(y, 0.0) + 0.0
+
+
+def exact_topk_quant(x: torch.Tensor, k: int, phase) -> Selected:
+    return _quantize(_pad_topk(x, _signed_score(x, phase), k), x.numel())
+
+
+def trimmed_topk_quant(x: torch.Tensor, k: int, phase,
+                       eps: float = 0.2) -> Selected:
+    """Alg 2 on the signed score; values from ``x``, then quantized."""
+    score = _trimmed_score(_signed_score(x, phase), k, eps)
+    return _quantize(_pad_topk(x, score, k), x.numel())
+
+
+def threshold_binary_search_quant(x: torch.Tensor, k: int, phase,
+                                  eps: float = 1e-3) -> Selected:
+    """Alg 3 on the signed score (a cold search: the alternating phase
+    rules out threshold reuse), the first-2k filter, then quantized."""
+    score = _signed_score(x, phase)
+    mean, mx = _stats(score)
+    thr = search_band(lambda t: (score > t).sum(), mean, mx, k, eps)
+    return _quantize(_first_survivors(x, score > thr, 2 * k), x.numel())
+
+
+def _quantize(sel: Selected, size: int) -> Selected:
+    """Replace the values by their mean (pinned sum times the f32
+    reciprocal of the count) at every live slot; padding stays 0."""
+    valid = sel.indices < size
+    total = pinned_sum(torch.where(valid, sel.values,
+                                   _f32(0.0, sel.values)))
+    mean = mean_of_sum(total, torch.clamp(sel.count, min=1))
+    return sel._replace(values=torch.where(valid, mean,
+                                           _f32(0.0, sel.values)))

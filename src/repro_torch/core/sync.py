@@ -2,11 +2,14 @@
 
 Port of ``src/repro/core/sync.py``. A message is one f32 vector
 
-    [ count (i32 bit-cast) | indices (i32 bit-cast) x cap | values x cap ]
+    [ count (i32 bit-cast) | indices (i32 bit-cast) x cap | payload ]
 
-Indices stay int32 end to end and are bit-cast with ``.view``, so packed
-bytes equal the reference's. Quantized payloads (§5.2.3) wait with the
-quantized selectors.
+payload = values x cap, or for a quantized message (§5.2.3) one scalar:
+the mean ``sum(values) / max(count, 1)``. Indices stay int32 end to end
+and are bit-cast with ``.view``, so packed bytes equal the reference's,
+but for that mean: the reference sums in an order XLA picks, this port
+with ``torch.sum``, so the two may differ in the last few bits (ROADMAP.md
+§3 states the tolerance).
 
 Collectives run over ``torch.distributed`` on the process groups of a
 ``launch.mesh.Mesh``: the workers are the ranks that differ along the
@@ -39,10 +42,11 @@ def message_len(capacity: int, quantized: bool) -> int:
 
 def pack_pieces(sel: Selected, quantized: bool) -> list[torch.Tensor]:
     """The wire-format segments of one message, in order."""
+    pieces = [_i2f(sel.count.reshape(1)), _i2f(sel.indices)]
     if quantized:
-        raise NotImplementedError(
-            "quantized messages are not ported yet (see ROADMAP.md)")
-    return [_i2f(sel.count.reshape(1)), _i2f(sel.indices), sel.values]
+        denom = torch.clamp(sel.count, min=1).to(torch.float32)
+        return pieces + [(sel.values.sum() / denom).reshape(1)]
+    return pieces + [sel.values]
 
 
 def pack(sel: Selected, quantized: bool) -> torch.Tensor:
@@ -58,14 +62,15 @@ def unpack_decompress(gathered: torch.Tensor, size: int, capacity: int,
     applied in ascending order; one worker's live indices are distinct,
     so each row is a gather-add-scatter with no atomics and no
     order-dependent float sums — the same adds, in the same order, as
-    the reference's scatter-add.
+    the reference's scatter-add. A quantized row adds its one mean at
+    each of its live indices.
     """
-    if quantized:
-        raise NotImplementedError(
-            "quantized messages are not ported yet (see ROADMAP.md)")
     counts = _f2i(gathered[:, 0])
     idx = _f2i(gathered[:, 1:1 + capacity]).to(torch.int64)
-    vals = gathered[:, 1 + capacity:1 + 2 * capacity]
+    if quantized:
+        vals = gathered[:, 1 + capacity:2 + capacity].expand(-1, capacity)
+    else:
+        vals = gathered[:, 1 + capacity:1 + 2 * capacity]
     slot = torch.arange(capacity, device=gathered.device)[None, :]
     live = (slot < counts[:, None]) & (idx >= 0) & (idx < size)
     idx = torch.where(live, idx, size)

@@ -33,6 +33,17 @@ in two places (ROADMAP.md §3):
   scores (the rule ``multi_select`` follows); the reference's Pallas
   composition falls back on overflow only, to an untrimmed exact top-k.
 
+The quantized selectors (§5.2.3) run the same compositions on the signed
+score (``selection._signed_score``, >= +0.0 everywhere, so ``|score| >
+t`` is ``score > t``), then take the values from the leaf itself at the
+selected indices and quantize them (``selection._quantize``):
+
+    threshold_binary_search_quant = threshold_binary_search(score), cold
+    trimmed_topk_quant            = trimmed_topk(score)
+
+bitwise the reference's ``selection.*_quant``. ``exact_topk_quant``
+has no kernel form in either package (a sort).
+
 The reference's ``ops.residual_update`` is ``residual_update.residual_update``
 on flat leaves, which ``residual.accumulate`` calls. The search loops are
 host loops: one ``.item()`` per iteration decides whether to go on.
@@ -41,9 +52,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.selection import (Selected, first_true, ladder_ratio,
-                                        mean_of_sum, search_band,
-                                        stable_topk_indices, threshold_at)
+from repro_torch.core.selection import (Selected, _quantize, _signed_score,
+                                        first_true, gather_values,
+                                        ladder_ratio, mean_of_sum,
+                                        search_band, stable_topk_indices,
+                                        threshold_at)
 
 from . import block_stats, compact, threshold_count
 from .common import branches
@@ -204,3 +217,28 @@ def _filter(x: torch.Tensor, thr: torch.Tensor, capacity: int) -> Selected:
                         bool((counts > cap).any()))
     return Selected(si, sv, torch.clamp(nnz, max=capacity).to(torch.int32),
                     nnz > capacity)
+
+
+def threshold_binary_search_quant(x: torch.Tensor, k: int, phase, *,
+                                  eps: float = 1e-3) -> Selected:
+    """The quantized Alg 3 on the per-leaf kernels: a cold search on the
+    signed score (threshold reuse is off under quantization), the
+    first-2k filter, values from ``x``, quantized. capacity == 2k."""
+    x = _flat(x)
+    sel, _ = threshold_binary_search(_signed_score(x, phase), k, eps=eps)
+    return _from_leaf(x, sel)
+
+
+def trimmed_topk_quant(x: torch.Tensor, k: int, phase, *,
+                       eps: float = 0.2) -> Selected:
+    """The quantized Alg 2 on the per-leaf kernels: the trimmed top-k of
+    the signed score, values from ``x``, quantized. capacity == k."""
+    x = _flat(x)
+    return _from_leaf(x, trimmed_topk(_signed_score(x, phase), k, eps=eps))
+
+
+def _from_leaf(x: torch.Tensor, sel: Selected) -> Selected:
+    """A selection made on the score, with the leaf's own values at its
+    indices, quantized."""
+    return _quantize(sel._replace(values=gather_values(x, sel.indices)),
+                     x.numel())

@@ -14,6 +14,11 @@ data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35 --no-fuse-leaves \
       [--optimizer trimmed_topk]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 20 --batch 20 --seq 35 --optimizer rgc_quant
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 20 --batch 20 --seq 35 --optimizer "warmup(rgc)" \
+      --warmup-steps-per-stage 5
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch paper-lstm --smoke --mesh 2 --device cpu --steps 6 \
       --batch 4 --seq 16 --density 0.02 [--transport per_leaf_allgather]
@@ -64,8 +69,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=0.2)
     ap.add_argument("--optimizer", default="rgc",
-                    help="rgc | dense | a registered compressor spec, "
-                    "e.g. threshold_bsearch")
+                    help="rgc | rgc_quant | dense | a registered "
+                    "compressor spec, e.g. threshold_bsearch or "
+                    "'quantized(trimmed_topk)', optionally prefixed by "
+                    "corrections: 'factor_masking+warmup(rgc)', "
+                    "'momentum+clip(threshold_bsearch)'")
     ap.add_argument("--transport", default="fused_allgather",
                     choices=list(registry.names(registry.TRANSPORT)))
     ap.add_argument("--bucket-bytes", type=int, default=None,
@@ -78,6 +86,10 @@ def main(argv: list[str] | None = None) -> None:
                     help="disable the flat residual arenas (per-leaf "
                     "mask/select/pack baseline)")
     ap.add_argument("--density", type=float, default=0.01)
+    ap.add_argument("--momentum", type=float, default=0.9)
+    ap.add_argument("--warmup-steps-per-stage", type=int, default=0,
+                    help="§5.7 density ramp: steps per warm-up stage "
+                    "(0: none, or 25 under a 'warmup(...)' spec)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                     "plain PyTorch path)")
@@ -93,8 +105,10 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch.train.trainer import Trainer
 
     cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
-    tc = TrainConfig(lr=args.lr, optimizer=args.optimizer,
-                     transport=args.transport, density=args.density,
+    tc = TrainConfig(lr=args.lr, momentum=args.momentum,
+                     optimizer=args.optimizer, transport=args.transport,
+                     density=args.density,
+                     warmup_steps_per_stage=args.warmup_steps_per_stage,
                      fuse_leaves=not args.no_fuse_leaves)
     if args.bucket_bytes is not None:
         import dataclasses

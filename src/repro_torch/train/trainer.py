@@ -51,8 +51,12 @@ def _batch_axes(mesh) -> tuple[str, ...]:
 def make_gradient_sync(tc: TrainConfig, device, mesh=None,
                        timer: Any = None) -> GradientSync:
     """The composed sync transform a TrainConfig describes, over the
-    batch axes of ``mesh`` (none: one worker). ``timer`` threads a
-    ``StageTimer`` through the pipeline (``None``: ``NullTimer``)."""
+    batch axes of ``mesh`` (none: one worker). ``tc.optimizer`` is
+    ``rgc`` / ``rgc_quant`` / ``dense`` or any registered compressor
+    spec, optionally with corrections (``"factor_masking+warmup(rgc)"``);
+    a spec-named ``warmup`` ramps over ``tc.warmup_steps_per_stage``.
+    ``timer`` threads a ``StageTimer`` through the pipeline (``None``:
+    ``NullTimer``)."""
     return build_gradient_sync(
         tc.optimizer,
         transport=tc.transport,
@@ -64,6 +68,8 @@ def make_gradient_sync(tc: TrainConfig, device, mesh=None,
         weight_decay=tc.weight_decay,
         local_clip=tc.local_clip,
         residual_dtype=_residual_dtype(tc),
+        warmup_steps_per_stage=tc.warmup_steps_per_stage,
+        dense_warmup=tc.dense_warmup,
         bucket_bytes=tc.bucket_bytes,
         intra_axis=tc.intra_axis,
         fuse_leaves=tc.fuse_leaves,

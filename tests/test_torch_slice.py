@@ -121,6 +121,64 @@ def test_trainer_per_leaf_steps_match_reference(kw):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+def test_trainer_quant_and_corrections_match_reference():
+    """Three steps of paths 4a (``rgc_quant``: quantized per-leaf search
+    on the LSTM matrices, embedding and output layer in the arena) and 4b
+    (factor masking, local clipping and the warm-up ramp, two steps per
+    stage: densities 0.25, 0.25, 0.0625) at smoke width."""
+    pytest.importorskip("torch")
+    for path, kw in (("4a", dict(optimizer="rgc_quant")),
+                     ("4b", dict(optimizer="factor_masking+warmup(rgc)",
+                                 local_clip=1.0, warmup_steps_per_stage=2))):
+        got, want = _trainer_losses(dict(lr=0.2, density=0.01, **kw))
+        assert len(got) == 3 and all(np.isfinite(got)), path
+        np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=path)
+
+
+def test_launcher_runs_quant_and_warmup(capsys):
+    """The launcher trains 2 steps at smoke width on the CPU with
+    ``rgc_quant`` and with ``warmup(rgc)``, and the
+    ``--warmup-steps-per-stage`` ramp shows in the logged density."""
+    pytest.importorskip("torch")
+    from repro_torch.launch import train as launch
+    for optimizer in ("rgc_quant", "warmup(rgc)"):
+        launch.main(["--arch", "paper-lstm", "--smoke", "--device", "cpu",
+                     "--steps", "2", "--batch", "2", "--seq", "8",
+                     "--optimizer", optimizer, "--momentum", "0.5",
+                     "--warmup-steps-per-stage", "1", "--log-every", "1"])
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("step")]
+        assert len(lines) == 2, optimizer
+        losses = [float(ln.split("loss")[1]) for ln in lines]
+        assert all(np.isfinite(losses)), optimizer
+        # the trainer's own schedule ramps rgc_quant; the spec's,
+        # warmup(rgc)
+        assert [ln.split("density")[1].split()[0] for ln in lines] == \
+            ["25.0000%", "6.2500%"], optimizer
+
+
+def test_launcher_momentum_and_warmup_flags(monkeypatch):
+    pytest.importorskip("torch")
+    from repro_torch.launch import train as launch
+    from repro_torch.train import trainer
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake(cfg, tc, device=None):
+        seen.append(tc)
+        raise Stop
+    monkeypatch.setattr(trainer, "Trainer", fake)
+    with pytest.raises(Stop):
+        launch.main(["--arch", "paper-lstm", "--smoke", "--device", "cpu",
+                     "--optimizer", "rgc_quant", "--momentum", "0.0",
+                     "--warmup-steps-per-stage", "7"])
+    assert (seen[-1].momentum, seen[-1].warmup_steps_per_stage,
+            seen[-1].optimizer) == (0.0, 7, "rgc_quant")
+
+
 def test_launcher_no_fuse_leaves_flag(monkeypatch):
     """``--no-fuse-leaves`` reaches the trainer as
     ``TrainConfig(fuse_leaves=False)``, as in the JAX launcher."""

@@ -191,6 +191,52 @@ def test_single_worker_parity(transport, kw):
             assert torch.equal(x, y)
 
 
+def test_single_worker_parity_quantized():
+    """The same with quantized leaves (``rgc_quant``: "a" binary search
+    and "b" trimmed top-k per leaf, ``[count | indices | mean]``
+    messages; "embed" unquantized in an arena), for the bucketed,
+    hierarchical and per-leaf transports; the bucketed transport buckets
+    the quantized messages by their own byte sizes."""
+    from repro_torch.core import (WallClockTimer, assign_buckets,
+                                  build_gradient_sync, tree)
+
+    params = {k: torch.from_numpy(v) for k, v in _tree().items()}
+    params["embed"] = params.pop("c")
+    grads = {k: v * 0.01 for k, v in params.items()}
+
+    def run(name, **tkw):
+        timer = WallClockTimer()
+        sync = build_gradient_sync("rgc_quant", transport=name,
+                                   density=0.01, dense_threshold_bytes=1024,
+                                   trimmed_threshold_bytes=180_000,
+                                   device="cpu", timer=timer, **tkw)
+        sent = []
+        gather = sync.transport.allgather
+        sync.transport.allgather = lambda ms: sent.extend(ms) or gather(ms)
+        st = sync.init(params)
+        out = sync.update(grads, st, params, torch.tensor(0.1))
+        return out, sent, timer.summary()["counts"]
+
+    (ref_p, ref_s), ref_msgs, _ = run("fused_allgather")
+    for transport, kw in (("bucketed_allgather", {"bucket_bytes": 4_500}),
+                          ("hierarchical", {}),
+                          ("per_leaf_allgather", {})):
+        (got_p, got_s), msgs, counts = run(transport, **kw)
+        assert [m.numel() for m in msgs] == [m.numel() for m in ref_msgs]
+        assert [m.numel() for m in msgs] == [1 + 5 + 5, 1 + 1000 + 1,
+                                             1 + 400 + 1]
+        if transport == "bucketed_allgather":
+            want = assign_buckets([4 * m.numel() for m in msgs],
+                                  kw["bucket_bytes"])
+            assert counts["buckets"] == len(want) == 2
+        for a, b in zip(tree.flatten(ref_p)[0], tree.flatten(got_p)[0]):
+            assert torch.equal(a, b), transport
+        for a, b in zip(tree.flatten(ref_s)[0], tree.flatten(got_s)[0]):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), transport
+        assert [int(s.phase) for s in tree.flatten(got_s)[0]] == [1, 1, 0]
+
+
 # ---------------------------------------------------------------------------
 # the stage timer
 # ---------------------------------------------------------------------------
