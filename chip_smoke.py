@@ -62,7 +62,17 @@ the JAX package. Phases, each fatal on failure:
    ``"factor_masking+warmup(rgc)"`` with ``local_clip=1.0``: params,
    residual, momentum, thresholds, phases and packed messages bitwise
    equal; sampled fused equal to sampled per-leaf accumulation; and
-   after one update, per leaf (3a) equal to arena (default);
+   after one update, per leaf (3a) equal to arena (default). Then the
+   §5.6 schedules on the default path, four full-width updates each,
+   params, residual, momentum, thresholds and messages bitwise:
+   ``chunked`` equal to ``sequential`` (each sparse leaf's message,
+   whichever chunk carried it) and with the kernels equal to with the
+   twins; ``stale1`` and ``staleK(k=2)`` equal to a ``sequential`` sync
+   whose transport gathers each step's messages one and two steps late
+   (their pending messages equal to the ones not gathered yet);
+   ``staleK(k=1)`` equal to ``stale1``; ``reabsorb_pending`` of a
+   one-step ``stale1`` state gives back the pre-mask residual; the chunk
+   layout holds every leaf once, in reverse parameter order;
 5. seven paths through ``Trainer(paper_lstm.FULL, TrainConfig(...))``,
    8 steps each of a seeded synthetic stream (batch 20 x seq 35): the
    default (``rgc``), 2a (``optimizer="sampled_bsearch"``), 2b (the
@@ -73,7 +83,10 @@ the JAX package. Phases, each fatal on failure:
    per leaf, whose phases must be 0 again after the 8 steps) and 4b
    (``optimizer="factor_masking+warmup(rgc)"``, ``local_clip=1.0``,
    ``warmup_steps_per_stage=2``: its density per step must follow the
-   four DGC warm-up stages, two steps each). Kernel launch
+   four DGC warm-up stages, two steps each), and the schedules 5a
+   (``schedule="chunked"``), 5b (``"stale1"``) and 5c
+   (``"staleK(k=2)"``); the host syncs inside ``multi_select`` are
+   counted per step on every path. Kernel launch
    counts and the selectors' branch counts (exact compaction after a
    bucket overflow, short pick; arena and per leaf) are zeroed just before
    each path and read just after; every loss must be finite, each path
@@ -98,11 +111,15 @@ the JAX package. Phases, each fatal on failure:
    (2 steps): kernels == twins, ranks' params equal, and
    ``per_leaf_allgather`` == ``fused_allgather``; path 3a
    with ``bucketed_allgather`` (at least 3 buckets) and
-   ``per_leaf_allgather`` == ``fused_allgather``; at p = 4
+   ``per_leaf_allgather`` == ``fused_allgather``; ``chunked`` (4 steps:
+   ranks equal, equal to ``sequential`` on its logged gradients, one
+   collective per chunk with messages) and ``stale1`` (3 steps: ranks
+   equal, equal to ``sequential`` gathering one step late); at p = 4
    (``("node", "local") = (2, 2)``) ``hierarchical`` with either intra
    axis == ``fused_allgather``, and path 4a (2 steps) with
    ``hierarchical`` == ``fused_allgather``; one rank over NCCL == no
-   mesh. Prints the
+   mesh. A collective that waits over ``DIST_PG_TIMEOUT_S`` raises.
+   Prints the
    ``WallClockTimer`` stage split (ms per step and share per stage, the
    counters, the median step) at p = 1 and p = 2, and each rank's peak
    device memory;
@@ -1127,6 +1144,164 @@ def phase_sync() -> None:
           "params, residual, momentum and thresholds bitwise equal")
 
 
+def _delay(transport, k: int) -> list:
+    """Make ``transport.allgather`` gather the messages it was given ``k``
+    calls earlier (all-zero messages for the first ``k`` calls), so a
+    ``sequential`` sync applies each step's selection ``k`` steps late: the
+    stale schedules' semantics built without their code. Returns the
+    queue of messages not gathered yet, oldest first."""
+    import torch
+    gather = transport.allgather
+    queue: list = []
+
+    def delayed(messages):
+        if not queue:
+            queue.extend([torch.zeros_like(m) for m in messages]
+                         for _ in range(k))
+        queue.append(list(messages))
+        return gather(queue.pop(0))
+    transport.allgather = delayed
+    return queue
+
+
+def _leaf_messages(sync) -> list:
+    """Record each update's gathered row-0 message of every sparse leaf,
+    ``{leaf index: tensor}``, whichever unit (an arena slot or a per-leaf
+    message, in whichever chunk) carried it. Returns the list of the
+    updates' dicts."""
+    from repro_torch.core import arena
+    sent: list = []
+    update, apply = sync.update, sync._apply_gathered
+
+    def update_spy(*args, **kw):
+        sent.append({})
+        return update(*args, **kw)
+
+    def apply_spy(gathered, meta, *args):
+        for buf, m in zip(gathered, meta):
+            if m[0] == "arena":
+                for slot, sbuf in zip(m[1].slots,
+                                      arena.split_message(m[1], buf)):
+                    sent[-1][slot.leaf] = sbuf[0].clone()
+            else:
+                sent[-1][m[1]] = buf[0].clone()
+        return apply(gathered, meta, *args)
+    sync.update, sync._apply_gathered = update_spy, apply_spy
+    return sent
+
+
+SCHED_STEPS = 4
+
+
+def phase_schedules() -> None:
+    """Phase 4, the §5.6 schedules on the default path at full width, 4
+    updates each (params, residual, momentum, thresholds and messages
+    bitwise): ``chunked`` == ``sequential`` (each sparse leaf's message,
+    whichever chunk carried it), ``chunked`` with the kernels == with the
+    twins, ``stale1`` and ``staleK(k=2)`` == a ``sequential`` sync whose
+    transport gathers each step's messages 1 and 2 steps late (pending ==
+    the messages not gathered yet), ``staleK(k=1)`` == ``stale1``;
+    ``reabsorb_pending`` of one ``stale1`` step from a zero state gives
+    back the pre-mask residual, which is that step's gradient
+    (V = 0 + (0.9 * 0 + g)); the chunk layout covers every leaf once, in
+    reverse parameter order."""
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.core.gradient_sync import build_gradient_sync
+    from repro_torch.core.overlap import reabsorb_pending
+    from repro_torch.kernels import segmented as kseg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    params = _full_width_tree(gen, dev, 0.05)
+    grads = [_full_width_tree(gen, dev, 1e-3) for _ in range(SCHED_STEPS)]
+    lr = torch.tensor(0.1, dtype=torch.float32, device=dev)
+    paths = [p for p, _ in tree.flatten_with_paths(params)]
+
+    def run(schedule, delay=0, steps=SCHED_STEPS):
+        """(leaves of the final params and state by key, per-step leaf
+        messages, the sync, the final state)."""
+        sync = build_gradient_sync("rgc", device=dev, schedule=schedule)
+        queue = _delay(sync.transport, delay) if delay else []
+        sent = _leaf_messages(sync)
+        p, st = params, sync.init(params)
+        before = dict(kseg.launches)
+        for g in grads[:steps]:
+            p, st = sync.update(g, st, p, lr)
+        torch.cuda.synchronize()
+        used = {k: kseg.launches[k] - before[k] for k in before
+                if kseg.launches[k] != before[k]}
+        out = _with_pending(_leaves(p, st), st, queue)
+        print(f"[sched] {schedule}{f' (delay {delay})' if delay else ''}: "
+              f"{steps} full-width updates, launches {used}")
+        return out, sent, sync, st
+
+    def same_messages(a, b) -> bool:
+        return len(a) == len(b) and all(
+            x.keys() == y.keys() and all(
+                torch.equal(_bits(x[k]), _bits(y[k])) for k in x)
+            for x, y in zip(a, b))
+
+    bad = []
+    seq, seq_sent, _, _ = run("sequential")
+    chk, chk_sent, chk_sync, _ = run("chunked")
+    if not (_same(chk, seq) and same_messages(chk_sent, seq_sent)):
+        bad.append("chunked != sequential")
+    with _twins_patched():
+        twins, twins_sent, _, _ = run("chunked")
+    if not (_same(chk, twins) and same_messages(chk_sent, twins_sent)):
+        bad.append("chunked with kernels != with twins")
+    del twins, twins_sent
+    plans = next(v for k, v in chk_sync._plans.items() if "chunked" in k)
+    layout = [[paths[i] for i in
+               ([s.leaf for g in pl.groups for s in g.slots]
+                + [i for i, _, _ in pl.sparse] + list(pl.dense))]
+              for pl in plans]
+    print(f"[sched] chunked layout (chunk_bytes {chk_sync.chunk_bytes}): "
+          f"{layout}; arena ids "
+          f"{[g.aid for pl in plans for g in pl.groups]}")
+    if [p for chunk in layout for p in chunk] != paths[::-1]:
+        bad.append(f"chunk layout {layout} is not every leaf once in "
+                   f"reverse parameter order")
+    torch.cuda.empty_cache()
+
+    s1, _, _, _ = run("stale1")
+    rep1, _, _, _ = run("sequential", delay=1)
+    if not _same(s1, rep1):
+        bad.append("stale1 != sequential delayed by one step")
+    k1, _, _, _ = run("staleK(k=1)")
+    if not _same(k1, s1):
+        bad.append("staleK(k=1) != stale1")
+    del k1, rep1
+    k2, _, _, _ = run("staleK(k=2)")
+    rep2, _, _, _ = run("sequential", delay=2)
+    if not _same(k2, rep2):
+        bad.append("staleK(k=2) != sequential delayed by two steps")
+    del k2, rep2, s1
+    torch.cuda.empty_cache()
+
+    _, _, sync1, st = run("stale1", steps=1)
+    res = tree.flatten(reabsorb_pending(sync1, params, st))[0]
+    g0 = tree.flatten(grads[0])[0]
+    sparse = [i for i, (path, x) in enumerate(tree.flatten_with_paths(
+        params)) if sync1.policy.compressor_for(path, x) != "dense"]
+    restored = all(torch.equal(_bits(res[i].residual), _bits(g0[i]))
+                   for i in sparse)
+    print(f"[sched] reabsorb_pending of a one-step stale1 state: the "
+          f"residual of the {len(sparse)} sparse leaves == the step's "
+          f"gradient bitwise: {restored}")
+    if not restored:
+        bad.append("reabsorb_pending did not restore the pre-mask residual")
+    if bad:
+        _fail("phase 4 schedules: " + "; ".join(bad))
+    print(f"[sched] OK over {SCHED_STEPS} full-width updates: chunked == "
+          f"sequential (params, residual, momentum, thresholds, each "
+          f"leaf's message), chunked kernels == twins, stale1 == sequential "
+          f"one step late and staleK(k=2) two steps late (pending == the "
+          f"messages not gathered yet), staleK(k=1) == stale1")
+
+
 LEAF_KERNELS = tuple(LEAF_REPLACES)
 # (key, label, TrainConfig overrides, kernels the path must launch)
 PATHS = (
@@ -1149,6 +1324,15 @@ PATHS = (
     ("4b", "4b factor_masking+warmup(rgc) local_clip",
      {"optimizer": "factor_masking+warmup(rgc)", "local_clip": 1.0,
       "warmup_steps_per_stage": 2},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+      "residual_update")),
+    ("5a", "5a chunked", {"schedule": "chunked"},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+      "residual_update")),
+    ("5b", "5b stale1", {"schedule": "stale1"},
+     ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
+      "residual_update")),
+    ("5c", "5c staleK(k=2)", {"schedule": "staleK(k=2)"},
      ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",
       "residual_update")),
 )
@@ -1199,16 +1383,16 @@ def _selection_spies(buckets: list, plain: dict):
     return stack
 
 
-def _host_sync_spy(count: list):
+def _host_sync_spy(count: list, owner, name: str):
     """A context that adds to ``count[0]`` each host synchronisation
     (``bool``, ``int``, ``float``, ``.item()``, ``.tolist()`` of a CUDA
-    tensor) made inside a quantized compressor's ``compress``: the cold
-    searches of path 4a's quantized leaves and their filters."""
+    tensor) made inside ``owner.name``: ``Quantized.compress`` (the cold
+    searches of path 4a's quantized leaves and their filters) or
+    ``segmented.multi_select`` (the arena searches)."""
     import contextlib
     from unittest import mock
 
     import torch
-    from repro_torch.core import compressors
 
     def counting(fn):
         def spy(self, *args, **kw):
@@ -1216,17 +1400,17 @@ def _host_sync_spy(count: list):
                 count[0] += 1
             return fn(self, *args, **kw)
         return spy
-    compress = compressors.Quantized.compress
+    inner = getattr(owner, name)
 
-    def spied(self, *args, **kw):
+    def spied(*args, **kw):
         with contextlib.ExitStack() as stack:
-            for name in ("__bool__", "__int__", "__float__", "item",
+            for attr in ("__bool__", "__int__", "__float__", "item",
                          "tolist"):
                 stack.enter_context(mock.patch.object(
-                    torch.Tensor, name, counting(getattr(torch.Tensor,
-                                                         name))))
-            return compress(self, *args, **kw)
-    return mock.patch.object(compressors.Quantized, "compress", spied)
+                    torch.Tensor, attr, counting(getattr(torch.Tensor,
+                                                         attr))))
+            return inner(*args, **kw)
+    return mock.patch.object(owner, name, spied)
 
 
 def _check_4a(trainer, state, rec, syncs) -> None:
@@ -1257,6 +1441,7 @@ def phase_train(results: dict, profile: int) -> list[dict]:
     import torch
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import compressors
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import common
     from repro_torch.kernels import segmented as kseg
@@ -1282,15 +1467,20 @@ def phase_train(results: dict, profile: int) -> list[dict]:
             rec.append((step, loss, now - last[0], counts))
             densities.append(density)
             syncs.append(host_syncs[0])
-            host_syncs[0] = 0
+            select_syncs.append(arena_syncs[0])
+            host_syncs[0] = arena_syncs[0] = 0
             last[0], last[1] = now, dict(kseg.launches)
 
         for counts in (kseg.launches, common.branches):
             for k in counts:
                 counts[k] = 0
         buckets, plain, densities, syncs, host_syncs = [], {}, [], [], [0]
+        select_syncs, arena_syncs = [], [0]
         last[0] = time.perf_counter()
-        with _selection_spies(buckets, plain), _host_sync_spy(host_syncs):
+        with _selection_spies(buckets, plain), \
+                _host_sync_spy(host_syncs, compressors.Quantized,
+                               "compress"), \
+                _host_sync_spy(arena_syncs, kseg, "multi_select"):
             state = trainer.run(state, data, steps, log_every=0,
                                 on_metrics=on_metrics)
         total = dict(kseg.launches)
@@ -1304,7 +1494,8 @@ def phase_train(results: dict, profile: int) -> list[dict]:
               f"{ {k: v for k, v in total.items() if v} }; branches "
               f"{dict(common.branches)}; bucketed compactions with a row "
               f"over its bucket {over} of {len(buckets)}; whole-leaf or "
-              f"whole-slot plain selections on the card {plain}")
+              f"whole-slot plain selections on the card {plain}; host "
+              f"syncs in multi_select per step {select_syncs}")
         if not all(math.isfinite(loss) for _, loss, _, _ in rec):
             _fail(f"non-finite loss on path {label}")
         if over and not common.branches["exact_compaction"]:
@@ -1347,6 +1538,9 @@ DIST_BATCH = 40            # global: 20 rows per rank at p = 2, as phase 5
 STEPS_3A = 3
 STEPS_4A = 2
 BUCKET_BYTES_3A = 300_000  # four buckets of path 3a's six messages
+# a phase-6 collective that waits longer than this raises (a hung or dead
+# peer rank); the task's deadline in ``_spawn`` bounds the whole group
+DIST_PG_TIMEOUT_S = 300
 # the default path's kernels whose launches per step do not depend on the
 # data (the search's counts and the exact compactions do)
 FIXED_PER_STEP = ("seg_abs_sum_max", "seg_compact_gt", "residual_update")
@@ -1367,8 +1561,12 @@ def _bits(t):
 
 def _leaves(params, rgc=None) -> dict:
     """A params tree and, if given, the residual, momentum, threshold and
-    phase of every leaf of its ``LeafState`` tree, by path."""
+    phase of every leaf of its ``LeafState`` tree (inside a buffered
+    schedule's ``ScheduleState`` too), by path."""
     from repro_torch.core import tree
+    from repro_torch.core.overlap import ScheduleState
+    if isinstance(rgc, ScheduleState):
+        rgc = rgc.leaf
     out = {f"p{k}": v for k, v in tree.flatten_with_paths(params)}
     for k, st in tree.flatten_with_paths(rgc or {}):
         for fld in ("residual", "momentum", "threshold", "phase"):
@@ -1489,11 +1687,15 @@ def _dist_run(mesh, overrides: dict, steps: int, *, timer=None,
     return state, rec, log
 
 
-def _replay(mesh, overrides: dict, log: dict, timer=None) -> dict:
+def _replay(mesh, overrides: dict, log: dict, timer=None,
+            delay: int = 0) -> dict:
     """The logged steps again through a fresh ``GradientSync`` built from
     ``TrainConfig(**overrides)``: every update gets the same gradients
     (so the model's own reduction order cannot enter the comparison).
-    Returns ``_leaves`` of the final params and state."""
+    ``delay``: its transport gathers each step's messages that many steps
+    late (``_delay``). Returns ``_leaves`` of the final params and state,
+    with the pending messages (or the delayed ones not gathered yet) as
+    ``q<i>``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import tree
     from repro_torch.train.trainer import make_gradient_sync
@@ -1501,13 +1703,45 @@ def _replay(mesh, overrides: dict, log: dict, timer=None) -> dict:
     params = log["params"]
     sync = make_gradient_sync(TrainConfig(**overrides),
                               tree.flatten(params)[0][0].device, mesh, timer)
+    queue = _delay(sync.transport, delay) if delay else []
     state = sync.init(params)
     struct = tree.structure(params)
     for grads, lr, density in log["steps"]:
         params, state = sync.update(
             tree.unflatten(struct, list(grads.values())), state, params, lr,
             density=density)
-    return _leaves(params, state)
+    return _with_pending(_leaves(params, state), state, queue)
+
+
+def _with_pending(out: dict, state, queue=()) -> dict:
+    """``out`` plus the messages still in flight as ``q<i>``, oldest
+    first: a schedule state's pending buffers (a ``staleK`` ring
+    generation by generation), or the delayed messages of ``queue``."""
+    from repro_torch.core.overlap import ScheduleState
+    waiting = [m for msgs in queue for m in msgs]
+    if isinstance(state, ScheduleState):
+        gens = state.pending
+        if gens and not isinstance(gens[0], tuple):
+            gens = (gens,)              # stale1's flat buffer
+        waiting += [m for gen in gens for m in gen]
+    out.update((f"q{i}", m) for i, m in enumerate(waiting))
+    return out
+
+
+def _chunks_with_messages(overrides: dict, params, mesh) -> int:
+    """How many chunks of the ``chunked`` schedule carry sparse messages
+    (one collective each) for ``params``' tree."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.train.trainer import make_gradient_sync
+    flat = tree.flatten_with_paths(params)
+    leaves = [x for _, x in flat]
+    sync = make_gradient_sync(TrainConfig(**overrides), leaves[0].device,
+                              mesh)
+    plans = sync._chunk_plans(tree.structure(params),
+                              tuple(p for p, _ in flat), leaves,
+                              sync.density, False)
+    return sum(bool(pl.groups or pl.sparse) for pl in plans)
 
 
 def _dist_p2(rank: int, mesh) -> dict:
@@ -1574,6 +1808,36 @@ def _dist_p2(rank: int, mesh) -> dict:
         got = _replay(mesh, {**kw, "transport": name, **extra}, log, timer)
         out[f"3a_{name}"] = timer.summary()["counts"]
         checks[f"3a_{name}_equal_fused"] = _agree(_same(got, fused))
+    del state, log, fused, got
+    torch.cuda.empty_cache()
+
+    # the schedules: chunked (ranks equal, == sequential on its logged
+    # gradients, one collective per chunk with messages) and stale1 (==
+    # sequential gathering each step's messages one step late)
+    kw = {"schedule": "chunked"}
+    timer = WallClockTimer()
+    state, out["chunked"], log = _dist_run(mesh, kw, DIST_STEPS,
+                                           timer=timer)
+    checks["chunked_ranks_equal"] = _ranks_equal(
+        list(_leaves(state.params).values()))
+    checks["chunked_equal_sequential"] = _agree(_same(
+        _leaves(state.params, state.rgc), _replay(mesh, {}, log)))
+    n_chunks = _chunks_with_messages(kw, log["params"], mesh)
+    out["chunked_counts"] = timer.summary()["counts"]
+    out["chunks_with_messages"] = n_chunks
+    checks["chunked_collectives_equal_chunks"] = (
+        out["chunked_counts"].get("collectives") == n_chunks * (
+            DIST_STEPS - 1))
+    del state, log
+    torch.cuda.empty_cache()
+
+    kw = {"schedule": "stale1"}
+    state, out["stale1"], log = _dist_run(mesh, kw, STEPS_3A)
+    checks["stale1_ranks_equal"] = _ranks_equal(
+        list(_leaves(state.params).values()))
+    checks["stale1_equal_delayed_sequential"] = _agree(_same(
+        _with_pending(_leaves(state.params, state.rgc), state.rgc),
+        _replay(mesh, {}, log, delay=1)))
     return out
 
 
@@ -1625,6 +1889,7 @@ def _dist_worker(task: str, rank: int, workdir: str) -> None:
     """One rank of a phase-6 task (a spawned child: it imports this file
     and runs no phase of its own; the parent already built the kernels).
     Writes ``<task>-rank<r>.json``, or its traceback to ``.err``."""
+    import datetime
     import traceback
 
     import torch
@@ -1634,8 +1899,10 @@ def _dist_worker(task: str, rank: int, workdir: str) -> None:
         torch.backends.cudnn.allow_tf32 = False
         from repro_torch.launch.mesh import Mesh, init_process_group
         world, shape, axes, backend, runner = DIST_TASKS[task]
-        init_process_group(f"file://{workdir}/{task}.pg", rank, world,
-                           backend=backend, device="cuda")
+        init_process_group(
+            f"file://{workdir}/{task}.pg", rank, world, backend=backend,
+            device="cuda",
+            timeout=datetime.timedelta(seconds=DIST_PG_TIMEOUT_S))
         torch.cuda.reset_peak_memory_stats()
         out = runner(rank, Mesh(shape, axes))
         torch.cuda.synchronize()
@@ -1756,6 +2023,17 @@ def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
             for k in next(p[3] for p in PATHS if p[0] == "4a"):
                 if not rec["launches"].get(k):
                     bad.append(f"p=2 rank {r} 4a step {s}: {k} not launched")
+        for sched in ("chunked", "stale1"):
+            for s, rec in enumerate(res[sched], 1):
+                print(f"[dist] p=2 rank {r} {sched} step {s}: loss "
+                      f"{rec['loss']:.6f} time {rec['s'] * 1e3:.2f} ms "
+                      f"launches {rec['launches']}")
+                if not math.isfinite(rec["loss"]):
+                    bad.append(f"p=2 rank {r} {sched} step {s}: non-finite "
+                               f"loss")
+    print(f"[dist] p=2 chunked: {p2[0]['chunks_with_messages']} chunks "
+          f"with messages; counters over steps 2-{DIST_STEPS} "
+          f"{p2[0]['chunked_counts']}")
     if p2[0]["default"][0]["launches"] != rec1[0]["launches"]:
         bad.append(f"step 1 launches: p=2 rank 0 "
                    f"{p2[0]['default'][0]['launches']}, p=1 on its rows "
@@ -1787,9 +2065,10 @@ def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
     print(f"[dist] OK: p=2 kernels == twins, ranks equal every step, "
           f"gathered rows == every rank's buffer; 4a kernels == twins, "
           f"ranks equal, per-leaf == fused; 3a bucketed and per-leaf "
-          f"== fused; p=4 hierarchical (both intra axes) == fused, 4a "
-          f"hierarchical == fused; NCCL "
-          f"world 1 == no mesh")
+          f"== fused; chunked ranks equal, == sequential, one collective "
+          f"per chunk with messages; stale1 ranks equal, == sequential one "
+          f"step late; p=4 hierarchical (both intra axes) == fused, 4a "
+          f"hierarchical == fused; NCCL world 1 == no mesh")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1831,6 +2110,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_leaf_kernels(results)
     phase_quant_forms()
     phase_sync()
+    phase_schedules()
     default_steps = phase_train(results, args.profile)
     phase_dist(results, default_steps, smi)
 

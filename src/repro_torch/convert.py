@@ -9,7 +9,11 @@ parity run initialises in JAX and moves the values across:
 Parameters map one to one (``embed.table``, ``lm_head``, ``lm_bias``,
 ``lstm_i.{wx,wh,b}``; same layouts, no transposes). A ``LeafState``
 tree (any named tuple with the reference's five fields at the leaves)
-becomes the port's ``LeafState`` tree; ``to_numpy`` goes the other way.
+becomes the port's ``LeafState`` tree, and a buffered schedule's state
+(any named tuple with ``ScheduleState``'s fields ``leaf`` and
+``pending``) the port's ``ScheduleState``: its LeafState tree, and its
+pending messages as a flat tuple (``stale1``) or a ring of tuples
+(``staleK``); ``to_numpy`` goes the other way.
 numpy has no bfloat16 of its own: a bf16 array (JAX's ``ml_dtypes``
 type) crosses by its bits, and a bf16 tensor comes back as float32,
 which holds every bf16 value exactly.
@@ -21,11 +25,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.overlap import ScheduleState
 from repro_torch.core.residual import LeafState
 
 
 def _is_leaf_state(x: Any) -> bool:
     return getattr(x, "_fields", None) == LeafState._fields
+
+
+def _is_schedule_state(x: Any) -> bool:
+    return getattr(x, "_fields", None) == ScheduleState._fields
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -42,21 +51,31 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def from_numpy(t: Any, device: str | torch.device = "cpu") -> Any:
-    """Nested dict of numpy arrays (or of LeafStates of numpy arrays) ->
-    the same tree of torch tensors on ``device``."""
+    """Nested dict of numpy arrays (or of LeafStates of numpy arrays, or a
+    ScheduleState of those) -> the same tree of torch tensors on
+    ``device``."""
     if isinstance(t, dict):
         return {k: from_numpy(v, device) for k, v in t.items()}
     if _is_leaf_state(t):
         return LeafState(*(_to_torch(f, device) for f in t))
+    if _is_schedule_state(t):
+        return ScheduleState(*(from_numpy(f, device) for f in t))
+    if isinstance(t, (tuple, list)):      # pending messages, or a ring
+        return tuple(from_numpy(x, device) for x in t)
     return _to_torch(t, device)
 
 
 def to_numpy(t: Any) -> Any:
-    """Port tree (tensors or LeafStates) -> nested dict of numpy arrays;
-    LeafStates become the port's LeafState of numpy arrays."""
+    """Port tree (tensors, LeafStates or a ScheduleState) -> nested dict
+    of numpy arrays; LeafStates become the port's LeafState of numpy
+    arrays, a ScheduleState the port's ScheduleState of them."""
     if isinstance(t, dict):
         return {k: to_numpy(v) for k, v in t.items()}
     if _is_leaf_state(t):
         return LeafState(*(_to_numpy(f) for f in t))
+    if _is_schedule_state(t):
+        return ScheduleState(*(to_numpy(f) for f in t))
+    if isinstance(t, (tuple, list)):
+        return tuple(to_numpy(x) for x in t)
     return _to_numpy(t)
 

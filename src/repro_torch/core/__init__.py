@@ -14,6 +14,8 @@ from .correction import (CorrectionBase, FactorMasking, LocalClip,
 from .dispatch import FixedPolicy, SizeBasedPolicy, leaf_nbytes
 from .gradient_sync import GradientSync, build_gradient_sync
 from .instrument import STAGES, NullTimer, WallClockTimer
+from .overlap import (Chunk, ChunkedSchedule, ScheduleState,
+                      SequentialSchedule, Stale1Schedule, partition_chunks)
 from .rgc import RGCConfig, gradient_sync_from_rgc_config, rgc_apply, rgc_init
 from .schedule import DensitySchedule
 from .selection import (Selected, exact_topk, exact_topk_quant,
@@ -33,6 +35,8 @@ __all__ = [
     "FixedPolicy", "SizeBasedPolicy", "leaf_nbytes",
     "GradientSync", "build_gradient_sync",
     "STAGES", "NullTimer", "WallClockTimer",
+    "Chunk", "ChunkedSchedule", "ScheduleState", "SequentialSchedule",
+    "Stale1Schedule", "partition_chunks",
     "RGCConfig", "gradient_sync_from_rgc_config", "rgc_apply", "rgc_init",
     "DensitySchedule",
     "Selected", "exact_topk", "exact_topk_quant", "threshold_binary_search",

@@ -32,10 +32,11 @@ corrections are additive: the ``momentum`` / ``local_clip`` fields stay
 the switches for their corrections whether or not the spec names them.
 
 ``update`` is functional: it reads its inputs and returns new tensors.
-Ported here: the ``sequential`` schedule, all five transports (over the
-process groups of a ``launch.mesh.Mesh`` when ``sync_axes`` name
-workers), the four corrections, every compressor, ``fuse_accumulate``
-and bf16 residuals. The overlap schedules wait (ROADMAP.md).
+Ported here: the four §5.6 schedules (``core.overlap``: ``sequential``,
+``chunked`` under ``chunk_bytes``, ``stale1``, ``staleK``), all five
+transports (over the process groups of a ``launch.mesh.Mesh`` when
+``sync_axes`` name workers), the four corrections, every compressor,
+``fuse_accumulate`` and bf16 residuals.
 """
 from __future__ import annotations
 
@@ -52,11 +53,12 @@ from . import registry
 from . import tree
 from .compressors import _Base as _CompressorBase  # noqa: F401 (registration)
 from .correction import LocalClip, MomentumCorrection, split_corrections
-from .dispatch import FixedPolicy
+from .dispatch import FixedPolicy, leaf_nbytes
 from .instrument import NullTimer
-from .overlap import SequentialSchedule, make_schedule
+from .overlap import SequentialSchedule, make_schedule, partition_chunks
 from .residual import LeafState, accumulate, mask_communicated
 from .sync import message_len
+from .transport import DEFAULT_BUCKET_BYTES
 from .transport import FusedAllgather  # noqa: F401 (registration)
 
 
@@ -97,6 +99,9 @@ class GradientSync:
     corrections: tuple | None = None
     compressor_params: dict = field(default_factory=dict)
     schedule: Any = None
+    # byte budget of one "chunked" chunk (raw gradient bytes; shares the
+    # bucket_bytes knob and default with the bucketed transport)
+    chunk_bytes: int = DEFAULT_BUCKET_BYTES
     timer: Any = None
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     _compressors: dict = field(default_factory=dict, repr=False)
@@ -191,7 +196,9 @@ class GradientSync:
         return self._plans[key]
 
     def _plan_leaves(self, indices, paths, leaves_g, density: float,
-                     all_dense: bool) -> _StepPlan:
+                     all_dense: bool, aid_base: int = 0) -> _StepPlan:
+        """The plan of the leaves in ``indices``, in that order: the whole
+        tree, or one chunk's leaves, whose arenas then hold only them."""
         dense: list[int] = []
         sparse: list[tuple[int, Any, int]] = []
         fusable: dict[tuple[str, str], list] = {}
@@ -216,12 +223,52 @@ class GradientSync:
 
         groups, group_comps = [], []
         for aid, ((name, dtype), slots) in enumerate(fusable.items()):
-            groups.append(arena.build_group(aid, name, dtype, slots))
+            groups.append(arena.build_group(aid_base + aid, name, dtype,
+                                            slots))
             group_comps.append(self.compressor(name))
         return _StepPlan(paths=tuple(paths[i] for i in indices),
                          dense=tuple(dense), sparse=tuple(sparse),
                          groups=tuple(groups),
                          group_comps=tuple(group_comps))
+
+    def _chunk_plans(self, treedef, paths, leaves_g: list, density: float,
+                     all_dense: bool) -> tuple[_StepPlan, ...]:
+        """The ``chunked`` schedule's per-chunk plans (cached): the leaves
+        split by ``overlap.partition_chunks`` under ``chunk_bytes`` (raw
+        gradient bytes), each chunk planned alone with arena ids
+        ``1000 * cid + i``."""
+        sig = tuple((tuple(g.shape), str(g.dtype)) for g in leaves_g)
+        key = (treedef, sig, density, all_dense, "chunked",
+               self.chunk_bytes)
+        if key not in self._plans:
+            chunks = partition_chunks([leaf_nbytes(g) for g in leaves_g],
+                                      self.chunk_bytes)
+            self._plans[key] = tuple(
+                self._plan_leaves(c.leaves, paths, leaves_g, density,
+                                  all_dense, aid_base=1000 * c.cid)
+                for c in chunks)
+        return self._plans[key]
+
+    def _target_plan(self, params: Any) -> tuple[_StepPlan, list]:
+        """The target-density plan over ``params``' leaves (the unit
+        layout of the buffered schedules' pending messages), and the
+        leaves."""
+        flat = tree.flatten_with_paths(params)
+        leaves = [x for _, x in flat]
+        return self._plan(tree.structure(params), tuple(p for p, _ in flat),
+                          leaves, self.density, self.density >= 1.0), leaves
+
+    def _pending_zeros(self, params: Any) -> tuple[torch.Tensor, ...]:
+        """Zero-count f32 wire messages on the sync's device in the
+        target-density plan's unit order (arena groups, then per-leaf
+        units): the buffered schedules' initial pending buffer. An
+        all-zero message decodes as count 0, so applying it is a no-op."""
+        plan, _ = self._target_plan(params)
+        sizes = [g.msg_total for g in plan.groups]
+        sizes += [message_len(comp.capacity(k), comp.quantized)
+                  for _, comp, k in plan.sparse]
+        return tuple(torch.zeros(n, dtype=torch.float32, device=self.device)
+                     for n in sizes)
 
     def _arena_coeffs(self) -> tuple[float, bool]:
         for c in self.corrections:
@@ -498,7 +545,10 @@ def build_gradient_sync(
 
     ``sync_axes`` name the data-parallel axes of ``mesh`` (a
     ``launch.mesh.Mesh``) the step syncs over; no axes is one worker.
-    ``bucket_bytes`` (bucketed_allgather's byte budget) and
+    ``schedule`` is a ``core.overlap`` spec (``"sequential"``,
+    ``"chunked"``, ``"stale1"``, ``"staleK(k=N)"``).
+    ``bucket_bytes`` (bucketed_allgather's byte budget, and the
+    ``chunked`` schedule's ``chunk_bytes``) and
     ``intra_axis`` (hierarchical's intra-node axis; default the last
     sync axis) go to the transport, which ignores knobs it does not use.
     ``timer`` is the ``StageTimer`` shared by the sync loop and the
@@ -566,6 +616,8 @@ def build_gradient_sync(
         fuse_leaves=fuse_leaves,
         fuse_accumulate=fuse_accumulate,
         schedule=make_schedule(schedule),
+        chunk_bytes=(DEFAULT_BUCKET_BYTES if bucket_bytes is None
+                     else int(bucket_bytes)),
         corrections=corrections,
         compressor_params=dict(compressor_params),
         timer=timer,

@@ -17,6 +17,7 @@ passes them (the launcher reads ``torchrun``'s environment).
 """
 from __future__ import annotations
 
+import datetime
 import itertools
 import math
 
@@ -29,21 +30,26 @@ from repro_torch import resolve_device
 
 def init_process_group(init_method: str, rank: int, world_size: int,
                        backend: str | None = None,
-                       device: str | torch.device | None = None
+                       device: str | torch.device | None = None,
+                       timeout: datetime.timedelta | None = None
                        ) -> torch.device:
     """Join the default process group; returns the resolved device.
 
     ``backend`` defaults to ``nccl`` on a CUDA device (one rank per card)
     and ``gloo`` on the CPU. Several ranks sharing one card need
     ``gloo``, which the caller passes. A CUDA ``device`` with an index
-    becomes the current device."""
+    becomes the current device. ``timeout`` bounds the rendezvous and
+    every collective of the group, so a rank whose peer hangs or died
+    raises instead of waiting; ``None`` keeps torch's default (30 minutes
+    for gloo)."""
     dev = resolve_device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
+    kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size, **kw)
     return dev
 
 

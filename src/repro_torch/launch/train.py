@@ -19,6 +19,8 @@ data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35 --optimizer "warmup(rgc)" \
       --warmup-steps-per-stage 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 20 --batch 20 --seq 35 --schedule "staleK(k=2)"
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch paper-lstm --smoke --mesh 2 --device cpu --steps 6 \
       --batch 4 --seq 16 --density 0.02 [--transport per_leaf_allgather]
@@ -85,6 +87,13 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--no-fuse-leaves", action="store_true",
                     help="disable the flat residual arenas (per-leaf "
                     "mask/select/pack baseline)")
+    ap.add_argument("--schedule", default="sequential",
+                    help="§5.6 overlap schedule spec: sequential (one "
+                    "full-tree transport barrier), chunked (one collective "
+                    "per chunk of --bucket-bytes in reverse parameter "
+                    "order, bitwise sequential), stale1 (one-step-delayed "
+                    "double-buffered sync), or 'staleK(k=4)' (K-step-"
+                    "delayed ring)")
     ap.add_argument("--density", type=float, default=0.01)
     ap.add_argument("--momentum", type=float, default=0.9)
     ap.add_argument("--warmup-steps-per-stage", type=int, default=0,
@@ -99,6 +108,11 @@ def main(argv: list[str] | None = None) -> None:
                     "where their device time goes")
     args = ap.parse_args(argv)
 
+    # the schedule grammar is free-form, so argparse choices cannot check
+    # it: an unknown name or a malformed spec fails here, before any work
+    from repro_torch.core.overlap import make_schedule
+    make_schedule(args.schedule)
+
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import bigram_batches
@@ -107,7 +121,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
     tc = TrainConfig(lr=args.lr, momentum=args.momentum,
                      optimizer=args.optimizer, transport=args.transport,
-                     density=args.density,
+                     schedule=args.schedule, density=args.density,
                      warmup_steps_per_stage=args.warmup_steps_per_stage,
                      fuse_leaves=not args.no_fuse_leaves)
     if args.bucket_bytes is not None:
@@ -125,7 +139,8 @@ def main(argv: list[str] | None = None) -> None:
     else:
         print(f"arch={cfg.name} params={n:,} optimizer={args.optimizer} "
               f"density={args.density} fuse_leaves={tc.fuse_leaves} "
-              f"transport={tc.transport} mesh={mesh or 'single-device'} "
+              f"transport={tc.transport} schedule={tc.schedule} "
+              f"mesh={mesh or 'single-device'} "
               f"device={trainer.device}")
     batches = bigram_batches(cfg.vocab_size, args.batch, args.seq,
                              seed=tc.seed)

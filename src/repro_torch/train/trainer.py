@@ -11,8 +11,10 @@ rank holds the whole parameter tree, made from the same seed, and takes
 its contiguous rows of the global batch: its first-axis-major position
 over the batch axes picks them, as ``shard_map`` with ``P(batch_axes)``
 does. The sync runs over the batch axes, and the reported loss is the
-mean over ranks (the reference's ``pmean``). Checkpoints wait (see
-ROADMAP.md).
+mean over ranks (the reference's ``pmean``). ``tc.schedule`` picks the
+§5.6 schedule (``core.overlap``); under ``stale1`` / ``staleK`` the
+optimizer state is a ``ScheduleState`` around the LeafState tree.
+Checkpoints wait (see ROADMAP.md).
 
 ``Trainer(...)`` runs on CUDA unless ``device="cpu"`` is passed, and
 raises when no card is present and the CPU was not asked for.
@@ -36,7 +38,7 @@ from repro_torch.models import lstm
 @dataclass
 class TrainState:
     params: Any              # nested dict of tensors
-    rgc: Any                 # LeafState tree
+    rgc: Any                 # LeafState tree, or a ScheduleState around it
     step: int = 0
 
 

@@ -9,16 +9,18 @@ import ``torch``, ``numpy`` and ``repro_torch`` only.
 
 * ``sync``    — 4 ranks: ``_transport_prog.py``'s scenario (STEPS sync
                 steps of the mixed-size tree, a different gradient per
-                worker) for every transport and mesh of ``SYNC_CONFIGS``,
-                then the tagged row-order check.
+                worker) for every transport, mesh and schedule of
+                ``SYNC_CONFIGS``, then the tagged row-order check.
 * ``trainer`` — 2 ranks: ``Trainer(mesh=("data",)=2)`` from given params
                 for each path of ``TRAINER_PATHS``, and the seeded init.
 """
 from __future__ import annotations
 
+import datetime
 import hashlib
 import json
 import os
+import time
 import traceback
 
 import numpy as np
@@ -29,7 +31,8 @@ DENSITY = 0.01
 TREE_SIZES = {"big": (1 << 20) + 17, "mid": 96 * 1024 + 3,
               "mid2": 33_001, "small": 1_000}
 MESHES = {("data",): (4,), ("node", "local"): (2, 2)}
-# (name, transport, sync axes, transport knobs)
+# (name, transport, sync axes, build_gradient_sync knobs); "chunked"'s
+# bucket_bytes splits the tree into three chunks: (small, mid2), mid, big
 SYNC_CONFIGS = (
     ("fused-data", "fused_allgather", ("data",), {}),
     ("bucketed-data", "bucketed_allgather", ("data",),
@@ -39,23 +42,46 @@ SYNC_CONFIGS = (
     ("hier-node", "hierarchical", ("node", "local"), {}),
     ("hier_intra_node-node", "hierarchical", ("node", "local"),
      {"intra_axis": "node"}),
+    ("chunked-data", "fused_allgather", ("data",),
+     {"schedule": "chunked", "bucket_bytes": 400_000}),
+    ("stale1-data", "fused_allgather", ("data",), {"schedule": "stale1"}),
 )
 TRAINER_PATHS = {"default": {}, "3a": {"fuse_leaves": False}}
 TRAINER_KW = dict(lr=0.2, density=0.01)
 TRAINER_BATCH, TRAINER_SEQ, TRAINER_STEPS = 4, 16, 3
+# one deadline for a whole group of ranks (several times the slowest
+# group's run), and the process group's own timeout for a collective
+DEADLINE_S = 180.0
+PG_TIMEOUT = datetime.timedelta(seconds=120)
 
 
 def digest(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def ref_tag(name: str) -> str:
+    """The reference run a config is held against: its mesh's (``data``,
+    ``node``), or ``<schedule>_<mesh>`` for a stale schedule (``chunked``
+    is bitwise ``sequential`` in the reference too)."""
+    kw = next(c[3] for c in SYNC_CONFIGS if c[0] == name)
+    tag = name.rsplit("-", 1)[1]
+    sched = kw.get("schedule", "sequential")
+    return tag if sched in ("sequential", "chunked") else f"{sched}_{tag}"
+
+
 def state_arrays(params, state) -> dict[str, np.ndarray]:
     """Every params leaf and LeafState field, keyed ``p/<leaf>`` and
-    ``s/<leaf>/<field>``, as numpy arrays."""
+    ``s/<leaf>/<field>``, and a buffered schedule's pending messages,
+    ``q/<unit>``, as numpy arrays."""
     out = {f"p/{k}": v.numpy() for k, v in params.items()}
+    pending = ()
+    if hasattr(state, "pending"):
+        state, pending = state.leaf, state.pending
     for k, st in state.items():
         for fld, v in st._asdict().items():
             out[f"s/{k}/{fld}"] = v.numpy()
+    for i, m in enumerate(pending):
+        out[f"q/{i}"] = m.numpy()
     return out
 
 
@@ -64,7 +90,8 @@ def _join(rank: int, world: int, workdir: str):
 
     from repro_torch.launch.mesh import init_process_group
     torch.set_num_threads(1)
-    init_process_group(f"file://{workdir}/pg", rank, world, device="cpu")
+    init_process_group(f"file://{workdir}/pg", rank, world, device="cpu",
+                       timeout=PG_TIMEOUT)
 
 
 def _sync_task(rank: int, workdir: str) -> None:
@@ -221,11 +248,13 @@ def start(task: str, world: int, workdir: str) -> list:
     return procs
 
 
-def wait(procs: list, workdir: str, timeout: float = 300.0) -> None:
+def wait(procs: list, workdir: str, timeout: float = DEADLINE_S) -> None:
     """Join the ranks; raise with the failing ranks' tracebacks unless
-    every rank exits 0 within ``timeout`` seconds."""
+    every rank exits 0 within ``timeout`` seconds, one deadline for all
+    of them (a hung rank is killed and named)."""
+    deadline = time.monotonic() + timeout
     for p in procs:
-        p.join(timeout)
+        p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for r in hung:
         procs[r].kill()

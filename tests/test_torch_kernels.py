@@ -15,6 +15,24 @@ bitwise to the reference's jnp backend."""
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_jax_executables():
+    """Free the XLA executables, and the memory maps they hold, that
+    earlier test modules on this worker left: on entry and on exit."""
+    import gc
+    try:
+        from jax import clear_caches
+    except ImportError:              # a card-only run, without JAX
+        def clear_caches():
+            pass
+    clear_caches()
+    gc.collect()
+    yield
+    clear_caches()
+    gc.collect()
+
+
 SIZES = (1500, 1024, 3000)      # ragged 3-slot arena: odd, exact, 3 rows
 SEG_KS = (7, 3, 40)
 STRIDES = (16, 1, 128)          # sampled strides; 1500 and 3000 not multiples

@@ -25,6 +25,24 @@ kernels run only on the card: ``test_cuda_leaf_kernels_match_twins``
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_jax_executables():
+    """Free the XLA executables, and the memory maps they hold, that
+    earlier test modules on this worker left: on entry and on exit."""
+    import gc
+    try:
+        from jax import clear_caches
+    except ImportError:              # a card-only run, without JAX
+        def clear_caches():
+            pass
+    clear_caches()
+    gc.collect()
+    yield
+    clear_caches()
+    gc.collect()
+
+
 LEAVES = [(1, False), (1000, True), (1024, False), (1025, True),
           (5000, False), (8192, True)]
 

@@ -17,6 +17,24 @@ Mirrors the quantized parts of ``test_rgc.py``
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_jax_executables():
+    """Free the XLA executables, and the memory maps they hold, that
+    earlier test modules on this worker left: on entry and on exit."""
+    import gc
+    try:
+        from jax import clear_caches
+    except ImportError:              # a card-only run, without JAX
+        def clear_caches():
+            pass
+    clear_caches()
+    gc.collect()
+    yield
+    clear_caches()
+    gc.collect()
+
+
 N, K = 3000, 40        # one shape, so each jitted reference compiles once
 WIRE_RTOL = 2e-6       # relative; the unpinned wire-mean sum (ROADMAP §3)
 CASES = ["normal", "signed_zeros", "ties", "few_of_sign"]

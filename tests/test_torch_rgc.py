@@ -29,6 +29,24 @@ import dataclasses
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_jax_executables():
+    """Free the XLA executables, and the memory maps they hold, that
+    earlier test modules on this worker left: on entry and on exit."""
+    import gc
+    try:
+        from jax import clear_caches
+    except ImportError:              # a card-only run, without JAX
+        def clear_caches():
+            pass
+    clear_caches()
+    gc.collect()
+    yield
+    clear_caches()
+    gc.collect()
+
+
 WIRE_RTOL = 2e-6
 LR = 0.1
 _TH = dict(dense_threshold_bytes=1024, trimmed_threshold_bytes=64 * 1024)

@@ -8,6 +8,24 @@ import os
 import numpy as np
 import pytest
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_jax_executables():
+    """Free the XLA executables, and the memory maps they hold, that
+    earlier test modules on this worker left: on entry and on exit."""
+    import gc
+    try:
+        from jax import clear_caches
+    except ImportError:              # a card-only run, without JAX
+        def clear_caches():
+            pass
+    clear_caches()
+    gc.collect()
+    yield
+    clear_caches()
+    gc.collect()
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ, BATCH = 16, 2
 
