@@ -123,9 +123,24 @@ the JAX package. Phases, each fatal on failure:
    ``WallClockTimer`` stage split (ms per step and share per stage, the
    counters, the median step) at p = 1 and p = 2, and each rank's peak
    device memory;
-7. a JSON line per kernel (time, bound, launches on each path and on
-   rank 0 of the p = 2 default path, error), then the last line
-   ``{"ok": true, "device": {...}}``.
+7. checkpoints at full width: (7a) on the default path and under
+   ``staleK(k=2)``, an uninterrupted 8-step run, a run with
+   ``ckpt_every=2`` that dies after step 5 (no end save), and a fresh
+   ``Trainer`` that restores step 4, replays the stream and finishes:
+   params, every ``LeafState`` field and the pending ring bitwise equal
+   to the uninterrupted run's, with the kernels' launches counted over
+   these runs; (7b) elastic p = 2 -> 1: two spawned gloo ranks train 2
+   steps under ``stale1`` and save (rows gathered, rank 0 writes), then
+   two restores at p = 1 must be bitwise equal and equal to the remainder
+   rule applied in numpy to the saved rows after reabsorbing each row's
+   ring; (7c) the launcher, ``--ckpt-every 2 --steps 4`` then
+   ``--resume --steps 6`` == ``--steps 6`` bitwise. Prints each save's
+   seconds and bytes (full or delta; a delta's sparse and dense leaves),
+   each restore's seconds, the phase's seconds and the card's name and
+   power limit;
+8. a JSON line per kernel (time, bound, launches on each path, on rank 0
+   of the p = 2 default path and over phase 7a's runs, error), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present or the
 port is not beside this script.
@@ -1744,7 +1759,7 @@ def _chunks_with_messages(overrides: dict, params, mesh) -> int:
     return sum(bool(pl.groups or pl.sparse) for pl in plans)
 
 
-def _dist_p2(rank: int, mesh) -> dict:
+def _dist_p2(rank: int, mesh, workdir: str) -> dict:
     """World 2, ("data",) = 2: the default path with the kernels (stage
     timer on; ranks' params and the gathered rows checked after every
     step), its steps replayed with the twins; path 4a, its steps replayed
@@ -1841,7 +1856,7 @@ def _dist_p2(rank: int, mesh) -> dict:
     return out
 
 
-def _dist_p4(rank: int, mesh) -> dict:
+def _dist_p4(rank: int, mesh, workdir: str) -> dict:
     """World 4, ("node", "local") = (2, 2): the default path's fused
     steps replayed with both hierarchical transports, then path 4a's
     (quantized leaves' ``[count | indices | mean]`` messages through the
@@ -1869,7 +1884,7 @@ def _dist_p4(rank: int, mesh) -> dict:
     return out
 
 
-def _dist_nccl1(rank: int, mesh) -> dict:
+def _dist_nccl1(rank: int, mesh, workdir: str) -> dict:
     """World 1 over NCCL, default path; its steps replayed without a
     mesh."""
     state, rec, log = _dist_run(mesh, {}, 3)
@@ -1904,7 +1919,7 @@ def _dist_worker(task: str, rank: int, workdir: str) -> None:
             device="cuda",
             timeout=datetime.timedelta(seconds=DIST_PG_TIMEOUT_S))
         torch.cuda.reset_peak_memory_stats()
-        out = runner(rank, Mesh(shape, axes))
+        out = runner(rank, Mesh(shape, axes), workdir)
         torch.cuda.synchronize()
         out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
         with open(os.path.join(workdir, f"{task}-rank{rank}.json"), "w") as f:
@@ -2071,6 +2086,280 @@ def phase_dist(results: dict, default_steps: list[dict], smi: str) -> None:
           f"hierarchical == fused; NCCL world 1 == no mesh")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: checkpoint chains, crash/resume and elastic restore
+# ---------------------------------------------------------------------------
+
+# (label, TrainConfig overrides): the default path, and staleK(k=2), whose
+# ring holds two generations at the crash
+CKPT_PATHS = (("default", {}), ("5c staleK(k=2)", {"schedule": "staleK(k=2)"}))
+CKPT_STEPS, CKPT_CRASH, CKPT_AT, CKPT_EVERY = 8, 5, 4, 2
+ELASTIC_STEPS = 2          # stale1 at p = 2, saved at this step
+
+
+class _Crash(Exception):
+    """Raised from ``on_metrics`` to kill a run mid-way."""
+
+
+def _ckpt_data(skip: int = 0):
+    """Phase 5's seeded stream from batch ``skip`` on."""
+    import itertools
+    from repro_torch.data.synthetic import SyntheticLM
+    stream = SyntheticLM(vocab_size=10_000, batch=20, seq_len=35, seed=SEED)
+    return map(stream.batch_at, itertools.count(skip))
+
+
+def _state_leaves(state) -> dict:
+    """Every tensor of a ``TrainState``'s params and optimizer state (the
+    pending ring too) by its checkpoint key."""
+    from repro_torch.checkpoint.ckpt import flatten
+    return dict(flatten({"params": state.params, "rgc": state.rgc}))
+
+
+def _same_host(a: dict, b: dict) -> bool:
+    """Whether two ``{key: numpy array}`` dicts hold the same keys, in
+    the same order, and the same shapes and bytes."""
+    import numpy as np
+    return list(a) == list(b) and all(
+        a[k].shape == b[k].shape and np.ascontiguousarray(a[k]).tobytes()
+        == np.ascontiguousarray(b[k]).tobytes() for k in a)
+
+
+def _chain_entries(directory: str) -> list[dict]:
+    """Each manifest entry with its ``arrays.npz`` bytes and, for a
+    delta, how many leaves (and bytes) went sparse and dense."""
+    import zipfile
+    from repro_torch.checkpoint import read_manifest
+    out = []
+    for e in read_manifest(directory)["entries"]:
+        path = os.path.join(directory, e["path"])
+        npz = os.path.join(path, "arrays.npz")
+        sizes = {i.filename[:-len(".npy")]: i.file_size
+                 for i in zipfile.ZipFile(npz).infolist()}
+        rec = {"step": e["step"], "kind": e["kind"],
+               "bytes": os.path.getsize(npz), "leaves": len(sizes)}
+        if e["kind"] == "delta":
+            with open(os.path.join(path, "meta.json")) as f:
+                kinds = json.load(f)["kinds"]
+            for kind in ("sparse", "dense"):
+                keys = [k for k, v in kinds.items() if v == kind]
+                rec[kind] = len(keys)
+                rec[f"{kind}_bytes"] = sum(sizes[k] for k in keys)
+            rec["sparse_keys"] = [k for k, v in kinds.items()
+                                  if v == "sparse"]
+        out.append(rec)
+    return out
+
+
+def _print_chain(label: str, directory: str, seconds: dict) -> None:
+    for rec in _chain_entries(directory):
+        extra = ""
+        if rec["kind"] == "delta":
+            extra = (f"; {rec['sparse']} leaves sparse "
+                     f"({rec['sparse_bytes']:,} bytes: "
+                     f"{', '.join(rec['sparse_keys'])}), {rec['dense']} "
+                     f"dense ({rec['dense_bytes']:,} bytes)")
+        print(f"[ckpt] {label}: save step {rec['step']} {rec['kind']} "
+              f"{rec['bytes']:,} bytes of {rec['leaves']} leaves in "
+              f"{seconds.get(rec['step'], float('nan')):.3f} s{extra}")
+
+
+def _timed_saves(trainer, seconds: dict) -> None:
+    """Record each ``save_checkpoint``'s seconds (device drained first)
+    by step."""
+    import torch
+    save = trainer.save_checkpoint
+
+    def timed(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(state)
+        seconds[state.step] = time.perf_counter() - t0
+        return out
+    trainer.save_checkpoint = timed
+
+
+def _dist_ckpt2(rank: int, mesh, workdir: str) -> dict:
+    """World 2, ("data",) = 2: ``ELASTIC_STEPS`` full-width steps under
+    ``stale1`` that save one checkpoint (every rank's rows gathered
+    through gloo, rank 0 writes) into ``<workdir>/ckpt2``."""
+    from repro_torch.configs import paper_lstm
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(paper_lstm.FULL, TrainConfig(schedule="stale1"),
+                      mesh=mesh, ckpt_dir=os.path.join(workdir, "ckpt2"),
+                      ckpt_every=ELASTIC_STEPS)
+    seconds: dict = {}
+    _timed_saves(trainer, seconds)
+    losses = []
+    trainer.run(trainer.init_state(), _dist_data(), ELASTIC_STEPS,
+                log_every=0, on_metrics=lambda s, d, loss: losses.append(loss))
+    return {"checks": {}, "losses": losses, "save_s": seconds}
+
+
+DIST_TASKS["ckpt2"] = (2, (2,), ("data",), "gloo", _dist_ckpt2)
+
+
+def _elastic_numpy(rows: dict, trainer) -> dict:
+    """The remainder rule at p = 1, in numpy, on the saved p = 2 rows:
+    each row's ring reabsorbed into its residual (``reabsorb_pending`` on
+    the card), residual and velocity summed in row order, params and the
+    scalars from row 0, the ring zero."""
+    import numpy as np
+    from repro_torch.checkpoint.ckpt import flatten, to_numpy, unflatten_like
+    from repro_torch.core.overlap import reabsorb_pending
+
+    fresh = trainer.init_state()
+    template = {"params": fresh.params, "rgc": fresh.rgc}
+    reabsorbed = []
+    for i in range(2):
+        row = unflatten_like(template, {k: v[i] for k, v in rows.items()})
+        reabsorbed.append({f"['rgc'].leaf{k}": to_numpy(v) for k, v in
+                           flatten(reabsorb_pending(
+                               trainer._sync, row["params"], row["rgc"]))})
+    out = {}
+    for k, v in rows.items():
+        if k in reabsorbed[0]:
+            a, b = reabsorbed[0][k], reabsorbed[1][k]
+            if k.endswith((".residual", ".momentum")) and a.ndim:
+                out[k] = np.zeros_like(a) + a + b
+            else:
+                out[k] = a
+        elif k.startswith("['rgc'].pending"):
+            out[k] = np.zeros_like(v[0])
+        else:
+            out[k] = v[0]
+    return out
+
+
+def phase_ckpt(results: dict, smi: str) -> None:
+    """Crash/resume on one card, elastic 2 -> 1 and the launcher; see the
+    module docstring."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.ckpt import to_numpy
+    from repro_torch.configs import paper_lstm
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import segmented as kseg
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    bad = []
+    for k in kseg.launches:
+        kseg.launches[k] = 0
+    for label, overrides in CKPT_PATHS:
+        tc = TrainConfig(**overrides)
+        trainer = Trainer(paper_lstm.FULL, tc)
+        state = trainer.run(trainer.init_state(), _ckpt_data(), CKPT_STEPS,
+                            log_every=0)
+        want = _state_leaves(state)
+        del trainer, state
+        with tempfile.TemporaryDirectory() as workdir:
+            seconds: dict = {}
+            crashed = Trainer(paper_lstm.FULL, tc, ckpt_dir=workdir,
+                              ckpt_every=CKPT_EVERY)
+            _timed_saves(crashed, seconds)
+
+            def crash(step, density, loss):
+                if step == CKPT_CRASH:
+                    raise _Crash
+            try:
+                crashed.run(crashed.init_state(), _ckpt_data(), CKPT_STEPS,
+                            log_every=0, on_metrics=crash)
+                bad.append(f"{label}: the run did not crash")
+            except _Crash:
+                pass
+            del crashed
+            torch.cuda.empty_cache()
+            resumed = Trainer(paper_lstm.FULL, tc, ckpt_dir=workdir)
+            _timed_saves(resumed, seconds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = resumed.restore_checkpoint(CKPT_AT)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            state = resumed.run(state, _ckpt_data(CKPT_AT),
+                                CKPT_STEPS - CKPT_AT, log_every=0)
+            got = _state_leaves(state)
+            same = got.keys() == want.keys() and all(
+                torch.equal(_bits(got[k]), _bits(want[k])) for k in want)
+            _print_chain(label, workdir, seconds)
+            print(f"[ckpt] {label}: restore of step {CKPT_AT} "
+                  f"{restore_s:.3f} s; {len(want)} leaves after step "
+                  f"{CKPT_STEPS} bitwise equal to the uninterrupted run: "
+                  f"{same}")
+            if not same:
+                bad.append(f"{label}: resumed state != uninterrupted")
+            del resumed, state, got, want
+            torch.cuda.empty_cache()
+    total = dict(kseg.launches)
+    for name in PATHS[0][3]:
+        if not total.get(name):
+            bad.append(f"{name} was not launched in the crash/resume runs")
+    for name in results:
+        results[name]["launches"]["ckpt_resume"] = total.get(name, 0)
+
+    # 7b: elastic p = 2 -> 1
+    with tempfile.TemporaryDirectory() as workdir:
+        ranks = _spawn("ckpt2", workdir)
+        d = os.path.join(workdir, "ckpt2")
+        _print_chain("p=2 stale1", d, {int(k): v for k, v in
+                                       ranks[0]["save_s"].items()})
+        tc = TrainConfig(schedule="stale1")
+        restored, times = [], []
+        for _ in range(2):
+            trainer = Trainer(paper_lstm.FULL, tc, ckpt_dir=d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.restore_checkpoint()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            restored.append({k: to_numpy(v) for k, v in
+                             _state_leaves(state).items()})
+            del state
+        rows = CheckpointManager(d).resolve_flat()
+        rule = _elastic_numpy(rows, trainer)
+        del trainer
+        twice = _same_host(restored[0], restored[1])
+        numpy_rule = _same_host(restored[0], rule)
+        print(f"[ckpt] elastic p=2 -> 1 (stale1, step {ELASTIC_STEPS}): "
+              f"restores {[round(t, 3) for t in times]} s; two restores "
+              f"bitwise equal: {twice}; equal to the remainder rule in "
+              f"numpy on the reabsorbed rows: {numpy_rule}; rank losses "
+              f"{[r['losses'] for r in ranks]}")
+        if not (twice and numpy_rule):
+            bad.append(f"elastic 2 -> 1: twice {twice}, rule {numpy_rule}")
+        del restored, rows, rule
+        torch.cuda.empty_cache()
+
+    # 7c: the launcher, --ckpt-every then --resume == uninterrupted
+    with tempfile.TemporaryDirectory() as workdir:
+        base = ["--arch", "paper-lstm", "--batch", "20", "--seq", "35",
+                "--density", "0.001", "--data", "zipf", "--log-every", "0"]
+        a, b = os.path.join(workdir, "a"), os.path.join(workdir, "b")
+        t0 = time.perf_counter()
+        launcher.main(base + ["--steps", "4", "--ckpt-dir", a,
+                              "--ckpt-every", "2"])
+        launcher.main(base + ["--steps", "6", "--ckpt-dir", a, "--resume"])
+        launcher.main(base + ["--steps", "6", "--ckpt-dir", b])
+        got, want = (CheckpointManager(x).resolve_flat(6) for x in (a, b))
+        same = _same_host(got, want)
+        print(f"[ckpt] launcher: --steps 4 --ckpt-every 2, then --resume "
+              f"--steps 6 == --steps 6, bitwise: {same} "
+              f"({time.perf_counter() - t0:.1f} s for the three runs)")
+        if not same:
+            bad.append("launcher resume != uninterrupted")
+    print(f"[ckpt] phase 7 {time.perf_counter() - t_phase:.1f} s; {smi}")
+    if bad:
+        _fail("phase 7: " + "; ".join(bad))
+    print("[ckpt] OK: crash/resume bitwise (default, staleK(k=2)), elastic "
+          "2 -> 1 deterministic and == the numpy rule, launcher resume == "
+          "uninterrupted")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2113,6 +2402,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_schedules()
     default_steps = phase_train(results, args.profile)
     phase_dist(results, default_steps, smi)
+    phase_ckpt(results, smi)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",

@@ -24,11 +24,21 @@ data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch paper-lstm --smoke --mesh 2 --device cpu --steps 6 \
       --batch 4 --seq 16 --density 0.02 [--transport per_leaf_allgather]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 4 --batch 20 --seq 35 --ckpt-dir ckpt --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
+      --steps 6 --batch 20 --seq 35 --ckpt-dir ckpt --resume
 
 On a mesh the backend is ``nccl`` on the card (one rank per card:
 ``cuda:LOCAL_RANK``) and ``gloo`` on the CPU. The two-axis
 ``("node", "local")`` mesh is reached through ``launch.mesh`` and
 ``Trainer(mesh=...)``, as in the JAX harness.
+
+``--data`` picks the seeded stream (``bigram``: the learnable chain,
+``zipf``: ``SyntheticLM``). ``--ckpt-dir`` / ``--ckpt-every N`` save a
+checkpoint chain every N steps and at the end; ``--resume`` restores the
+latest one (bitwise at the same worker count, redistributed at another)
+and replays the stream to its step, so ``--steps`` counts from step 0.
 
 ``--profile N`` trains N more steps under ``torch.profiler`` and prints
 the device time by kernel and the device's busy share of those steps.
@@ -99,6 +109,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--warmup-steps-per-stage", type=int, default=0,
                     help="§5.7 density ramp: steps per warm-up stage "
                     "(0: none, or 25 under a 'warmup(...)' spec)")
+    ap.add_argument("--data", default="bigram", choices=["bigram", "zipf"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a fault-tolerance checkpoint (full + "
+                    "sparse-delta chain) every N steps into --ckpt-dir")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                    "--ckpt-dir (bitwise at the same worker count; "
+                    "elastic remainder-rule redistribution otherwise)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                     "plain PyTorch path)")
@@ -112,10 +131,12 @@ def main(argv: list[str] | None = None) -> None:
     # it: an unknown name or a malformed spec fails here, before any work
     from repro_torch.core.overlap import make_schedule
     make_schedule(args.schedule)
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume requires --ckpt-dir")
 
     from repro_torch.configs import paper_lstm
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.synthetic import bigram_batches
+    from repro_torch.data.synthetic import SyntheticLM, bigram_batches
     from repro_torch.train.trainer import Trainer
 
     cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
@@ -131,8 +152,15 @@ def main(argv: list[str] | None = None) -> None:
     if args.mesh:
         mesh, device = _mesh_from_env(args.mesh, args.device)
         kw["mesh"] = mesh
+    if args.ckpt_dir:
+        kw.update(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     trainer = Trainer(cfg, tc, device=device, **kw)
-    state = trainer.init_state()
+    if args.resume:
+        state = trainer.restore_checkpoint()
+        if mesh is None or mesh.rank == 0:
+            print(f"resumed from step {state.step} in {args.ckpt_dir}")
+    else:
+        state = trainer.init_state()
     n = sum(p.numel() for p in trainer.model.parameters())
     if mesh is not None and mesh.rank != 0:
         args.log_every = 0      # rank 0 reports the (rank-mean) loss
@@ -142,9 +170,15 @@ def main(argv: list[str] | None = None) -> None:
               f"transport={tc.transport} schedule={tc.schedule} "
               f"mesh={mesh or 'single-device'} "
               f"device={trainer.device}")
-    batches = bigram_batches(cfg.vocab_size, args.batch, args.seq,
-                             seed=tc.seed)
-    state = trainer.run(state, batches, args.steps,
+    if args.data == "bigram":
+        batches = bigram_batches(cfg.vocab_size, args.batch, args.seq,
+                                 seed=tc.seed)
+    else:
+        batches = iter(SyntheticLM(cfg.vocab_size, args.batch, args.seq,
+                                   seed=tc.seed))
+    for _ in range(state.step):             # deterministic batch replay
+        next(batches)
+    state = trainer.run(state, batches, max(0, args.steps - state.step),
                         log_every=args.log_every)
     if args.profile:
         profile_steps(trainer, state, batches, args.profile)

@@ -14,7 +14,13 @@ does. The sync runs over the batch axes, and the reported loss is the
 mean over ranks (the reference's ``pmean``). ``tc.schedule`` picks the
 §5.6 schedule (``core.overlap``); under ``stale1`` / ``staleK`` the
 optimizer state is a ``ScheduleState`` around the LeafState tree.
-Checkpoints wait (see ROADMAP.md).
+
+``ckpt_every=N`` saves a fault-tolerance checkpoint every N steps into
+``ckpt_dir`` (a ``checkpoint.CheckpointManager`` full + sparse-delta
+chain, in the reference's format). It holds every worker's params,
+residual, velocity and pending ring, one row per worker, so
+``restore_checkpoint`` resumes bitwise at the same worker count and
+redistributes by the remainder rule at another one.
 
 ``Trainer(...)`` runs on CUDA unless ``device="cpu"`` is passed, and
 raises when no card is present and the CPU was not asked for.
@@ -24,7 +30,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -107,10 +115,15 @@ def make_train_step(model: lstm.LSTMLM, sync: GradientSync,
 
 class Trainer:
     """End-to-end training loop for the LSTM LM, on one device or data
-    parallel over ``mesh``."""
+    parallel over ``mesh``, with checkpoints into ``ckpt_dir`` every
+    ``ckpt_every`` steps (0: only at the end of ``run``; no
+    ``ckpt_dir``: none) and a full snapshot every ``ckpt_full_every``-th
+    save."""
 
     def __init__(self, arch_cfg: ModelConfig, tc: TrainConfig,
-                 device: str | torch.device | None = None, mesh=None):
+                 device: str | torch.device | None = None, mesh=None,
+                 ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+                 ckpt_full_every: int = 4):
         if arch_cfg.family != "lstm":
             raise NotImplementedError(
                 f"model family {arch_cfg.family!r} is not ported yet "
@@ -119,6 +132,10 @@ class Trainer:
         self.cfg = arch_cfg
         self.tc = tc
         self.mesh = mesh
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.ckpt_full_every = ckpt_full_every
+        self._ckpt_mgr = None
         self.schedule = DensitySchedule(
             target=tc.density,
             warmup_steps_per_stage=tc.warmup_steps_per_stage,
@@ -165,6 +182,117 @@ class Trainer:
         i = self.mesh.index(axes)
         return tokens[i * n:(i + 1) * n]
 
+    # -- fault-tolerance checkpointing --------------------------------------
+
+    def _num_workers(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.axes_size(_batch_axes(self.mesh))
+
+    def _manager(self):
+        from repro_torch.checkpoint import CheckpointManager
+        if self.ckpt_dir is None:
+            raise ValueError("Trainer has no ckpt_dir")
+        if self._ckpt_mgr is None:
+            self._ckpt_mgr = CheckpointManager(
+                self.ckpt_dir, full_every=self.ckpt_full_every)
+        return self._ckpt_mgr
+
+    def save_checkpoint(self, state: TrainState) -> Optional[str]:
+        """Persist the full training state (params, residual, velocity,
+        thresholds, counters and any pending message ring) with one row
+        per worker, so restore is bitwise. On a mesh every rank calls it:
+        the rows are gathered to every rank, rank 0 writes, and all ranks
+        then meet, so a failed write raises on every rank. Returns the
+        written entry's path (``None`` on the other ranks)."""
+        from repro_torch.checkpoint import stack_worker_copies
+        stacked = stack_worker_copies({"params": state.params,
+                                       "rgc": state.rgc}, self.mesh)
+        writer = self.mesh is None or self.mesh.rank == 0
+        path, err = None, None
+        if writer:
+            try:
+                path = self._manager().save(
+                    state.step, stacked,
+                    metadata={"num_workers": self._num_workers(),
+                              "schedule": self.tc.schedule,
+                              "optimizer": self.tc.optimizer})
+            except Exception as e:             # raised after the meeting
+                err = e
+        del stacked
+        if self.mesh is not None:
+            ok = torch.tensor([int(err is None)], device=self.device)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            if not writer:
+                self._ckpt_mgr = None          # re-read rank 0's manifest
+            if err is None and not int(ok.item()):
+                raise RuntimeError(
+                    f"rank 0 failed to write the checkpoint of step "
+                    f"{state.step} into {self.ckpt_dir}")
+        if err is not None:
+            raise err
+        return path
+
+    def restore_checkpoint(self, step: Optional[int] = None) -> TrainState:
+        """Resume from ``ckpt_dir`` at ``step`` (default latest), and
+        build the model as ``init_state`` does.
+
+        Same worker count: every worker's buffers go back to its device,
+        a bitwise continuation, pending ring included. Different worker
+        count: each old worker's pending ring is reabsorbed into its
+        residual (``core.overlap.reabsorb_pending``), then residual and
+        velocity redistribute by the remainder SUM rule and the scalar
+        state by the copy rule (``checkpoint.elastic``); the pending
+        ring restarts zeroed."""
+        from repro_torch.checkpoint import (redistribute_leaf_states,
+                                            redistribute_tree,
+                                            unstack_to_devices)
+        from repro_torch.checkpoint.ckpt import (flatten, map_with_keys,
+                                                 np_dtype, to_numpy, to_torch)
+        from repro_torch.core.overlap import ScheduleState, reabsorb_pending
+
+        mgr = self._manager()
+        if step is None:
+            step = mgr.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {self.ckpt_dir}")
+        p_ckpt = int(mgr.metadata.get("num_workers", 1))
+        p_now = self._num_workers()
+
+        fresh = self.init_state()
+        template = map_with_keys(
+            lambda _, t: np.zeros((p_ckpt,) + tuple(t.shape), np_dtype(t)),
+            {"params": fresh.params, "rgc": fresh.rgc})
+        del fresh
+        stacked = mgr.restore(template, step=step)
+        if p_now == p_ckpt:
+            dev = unstack_to_devices(stacked, self.mesh, self.device)
+            return TrainState(params=dev["params"], rgc=dev["rgc"],
+                              step=step)
+
+        # reabsorb each OLD worker's in-flight ring into its residual
+        # (packed for a 1/p_ckpt-weighted apply: not replayable at
+        # p_now), then redistribute
+        def row(tree_, i):
+            return map_with_keys(lambda _, s: to_torch(s[i], self.device),
+                                 tree_)
+        workers = [map_with_keys(lambda _, t: to_numpy(t), reabsorb_pending(
+            self._sync, row(stacked["params"], i), row(stacked["rgc"], i)))
+            for i in range(p_ckpt)]
+        flats = [dict(flatten(w)) for w in workers]
+        stacked_leaf = map_with_keys(
+            lambda k, x: np.stack([f[k] for f in flats]).view(x.dtype),
+            workers[0])
+        new_leaf = redistribute_leaf_states(stacked_leaf, p_now)
+        new_params = redistribute_tree(stacked["params"], p_now,
+                                       lambda key, leaf: False)
+        dev = unstack_to_devices({"params": new_params, "leaf": new_leaf},
+                                 self.mesh, self.device)
+        init = self._sync.init(dev["params"])
+        rgc = (ScheduleState(leaf=dev["leaf"], pending=init.pending)
+               if isinstance(init, ScheduleState) else dev["leaf"])
+        return TrainState(params=dev["params"], rgc=rgc, step=step)
+
     def run(self, state: TrainState, batches, num_steps: int,
             log_every: int = 10, log_fn=print,
             on_metrics: Optional[Callable[[int, float, float], None]] = None
@@ -188,5 +316,10 @@ class Trainer:
             if log_every and state.step % log_every == 0:
                 log_fn(f"step {state.step:5d}  density {density:.4%}  "
                        f"loss {float(loss):.4f}")
+            if (self.ckpt_dir and self.ckpt_every
+                    and state.step % self.ckpt_every == 0):
+                self.save_checkpoint(state)
+        if self.ckpt_dir and self._manager().latest_step() != state.step:
+            self.save_checkpoint(state)
         self.model.set_params(state.params)
         return state

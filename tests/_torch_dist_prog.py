@@ -12,7 +12,10 @@ import ``torch``, ``numpy`` and ``repro_torch`` only.
                 worker) for every transport, mesh and schedule of
                 ``SYNC_CONFIGS``, then the tagged row-order check.
 * ``trainer`` — 2 ranks: ``Trainer(mesh=("data",)=2)`` from given params
-                for each path of ``TRAINER_PATHS``, and the seeded init.
+                for each path of ``TRAINER_PATHS``, the seeded init, and
+                ``CKPT_STEPS`` steps under ``stale1`` that save one
+                checkpoint chain into ``<workdir>/CKPT_DIR``, then a save
+                that fails on rank 0.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ SYNC_CONFIGS = (
 TRAINER_PATHS = {"default": {}, "3a": {"fuse_leaves": False}}
 TRAINER_KW = dict(lr=0.2, density=0.01)
 TRAINER_BATCH, TRAINER_SEQ, TRAINER_STEPS = 4, 16, 3
+CKPT_DIR, CKPT_STEPS = "ckpt_stale1", 2
 # one deadline for a whole group of ranks (several times the slowest
 # group's run), and the process group's own timeout for a collective
 DEADLINE_S = 180.0
@@ -191,6 +195,22 @@ def _trainer_task(rank: int, workdir: str) -> None:
                      device="cpu", mesh=mesh).init_state()
     out["seeded_init"] = {k: digest(v.numpy())
                           for k, v in flat(seeded.params).items()}
+    ck = Trainer(paper_lstm.smoke(),
+                 TrainConfig(**TRAINER_KW, schedule="stale1"), device="cpu",
+                 mesh=mesh, ckpt_dir=os.path.join(workdir, CKPT_DIR),
+                 ckpt_every=CKPT_STEPS)
+    state = ck.run(ck.init_state(params=convert.from_numpy(nest(inp))),
+                   bigram_batches(512, TRAINER_BATCH, TRAINER_SEQ, seed=0),
+                   CKPT_STEPS, log_every=0)
+    # a save whose write fails on rank 0 (its directory is a file) must
+    # raise on every rank, not leave rank 1 waiting
+    bad = Trainer(paper_lstm.smoke(), ck.tc, device="cpu", mesh=mesh,
+                  ckpt_dir=os.path.join(workdir, "trainer_params.npz"))
+    try:
+        bad.save_checkpoint(state)
+        out["failed_save"] = None
+    except (OSError, RuntimeError) as e:
+        out["failed_save"] = f"{type(e).__name__}: {e}"
     with open(os.path.join(workdir, f"trainer_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
