@@ -138,9 +138,27 @@ the JAX package. Phases, each fatal on failure:
    seconds and bytes (full or delta; a delta's sparse and dense leaves),
    each restore's seconds, the phase's seconds and the card's name and
    power limit;
-8. a JSON line per kernel (time, bound, launches on each path, on rank 0
-   of the p = 2 default path and over phase 7a's runs, error), then the
-   last line ``{"ok": true, "device": {...}}``.
+8. the transformer chassis at full width, each with ``TrainConfig()``
+   (``rgc``, density 0.001, ``fuse_leaves``, ``sequential``) on the
+   seeded zipf stream: (8a) ``internlm2-1.8b`` FULL (24 layers, bf16,
+   1,889,110,016 params; its nine matrices form one 1,889,009,664-element
+   arena), global batch 2 x seq 4096 for 4 steps, each step's loss
+   (finite) and wall time, the peak device memory and the launches
+   (fails unless ``seg_abs_sum_max``, ``seg_count_gt`` and
+   ``seg_compact_gt`` launch), one profiled step (device time by kernel,
+   busy and idle share), then one ``GradientSync.update`` on a further
+   step's gradients with the kernels and one with the twins from the
+   same state (params, residual, momentum, thresholds, phases and the
+   wire messages bitwise; the kernel run's result is held on the host),
+   and kernels 1-3 timed on that update's arena (20 launches in one CUDA
+   graph) beside their bounds; (8b) ``gemma3-4b`` at 6 of its 34 layers
+   (one ``L L L L L G`` cycle: window 1024 and theta 10k, then global
+   theta 1M) and (8c) ``paligemma-3b`` at 2 of its 18 layers (a
+   256-token bidirectional stub prefix plus 1024 text tokens), batch 1,
+   2 steps each: losses finite, params moved, peak memory printed;
+9. a JSON line per kernel (time, bound, launches on each path, on rank 0
+   of the p = 2 default path, over phase 7a's runs and over phase 8a's
+   steps, error), then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present or the
 port is not beside this script.
@@ -1571,6 +1589,8 @@ def _dist_data(rows: slice | None = None):
 
 def _bits(t):
     import torch
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -2360,6 +2380,270 @@ def phase_ckpt(results: dict, smi: str) -> None:
           "uninterrupted")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the transformer chassis at full width (dense and vlm configs)
+# ---------------------------------------------------------------------------
+
+# 8a: internlm2-1.8b FULL (24 layers), global batch x TRAIN_4K's sequence
+MODEL_BATCH, MODEL_SEQ, MODEL_STEPS = 2, 4096, 4
+SEG_KERNELS = ("seg_abs_sum_max", "seg_count_gt", "seg_compact_gt")
+
+
+def _model_data(model, batch: int, seq: int):
+    """The seeded zipf stream (``bigram`` draws a vocab x vocab float64
+    matrix: 68 GB at vocab 92,544), with the vlm stub prefix attached to
+    every batch as the launcher does."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.train import _with_stub
+    data = iter(SyntheticLM(model.cfg.vocab_size, batch, seq, seed=SEED))
+    if model.cfg.family == "vlm":
+        data = _with_stub(data, model.make_train_batch(batch, seq))
+    return data
+
+
+def _train_model(label: str, cfg, batch: int, seq: int, steps: int,
+                 smi: str):
+    """``Trainer(cfg, TrainConfig())`` for ``steps`` steps of the zipf
+    stream with the launch counts zeroed first; prints each step's loss
+    and wall time, the peak device memory and the launches, and fails on
+    a non-finite loss or params that did not move. Returns (trainer,
+    state, data, launches)."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.kernels import common
+    from repro_torch.kernels import segmented as kseg
+    from repro_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig())
+    # no reference to the initial state may outlive the first step: it
+    # would hold a second full copy of params, residual and velocity
+    box = [trainer.init_state()]
+    first = [p.cpu() for p in tree.flatten(box[0].params)[0]]
+    n = sum(p.numel() for p in first)
+    data = _model_data(trainer.model, batch, seq)
+    for counts in (kseg.launches, common.branches):
+        for k in counts:
+            counts[k] = 0
+    rec = []
+    torch.cuda.synchronize()
+    last = [time.perf_counter()]
+
+    def on_metrics(step, density, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec.append((step, loss, now - last[0]))
+        last[0] = now
+    state = trainer.run(box.pop(), data, steps, log_every=0,
+                        on_metrics=on_metrics)
+    launches = {k: v for k, v in kseg.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(int(not torch.equal(a, b.cpu())) for a, b in
+                zip(first, tree.flatten(state.params)[0]))
+    n_leaves = len(first)
+    del first
+    for step, loss, dt in rec:
+        print(f"[model] {label}: step {step} loss {loss:.6f} time "
+              f"{dt * 1e3:.1f} ms")
+    print(f"[model] {label}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size:,}, {n:,} params "
+          f"({str(cfg.dtype).replace('torch.', '')}), batch {batch} x seq "
+          f"{seq}; peak device memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated); {moved} of {n_leaves} param leaves "
+          f"moved; launches over {steps} steps {launches}; branches "
+          f"{dict(common.branches)}; {smi}")
+    if not all(math.isfinite(loss) for _, loss, _ in rec):
+        _fail(f"phase 8 {label}: non-finite loss")
+    if not moved:
+        _fail(f"phase 8 {label}: the params did not move")
+    return trainer, state, data, launches
+
+
+def _model_grads(model, params, batch):
+    """The local gradients one trainer step hands to the sync."""
+    import torch
+    from repro_torch.core import tree
+    leaves, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in leaves]
+    loss = model.loss(tree.unflatten(treedef, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return tree.unflatten(treedef, list(grads))
+
+
+def _select_spies(seen: list):
+    """A context recording each ``multi_select`` call's arena, geometry,
+    thresholds and bucket size into ``seen``."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels import segmented as kseg
+
+    def spy_select(fn):
+        def spy(parts):
+            rec = {"x2d": parts[0][0], "geom": parts[0][1]}
+            seen.append(rec)
+            out = fn(parts)
+            rec["thr"] = out[0][1].clone()
+            return out
+        return spy
+
+    def spy_compact(fn):
+        def spy(x2d, geom, thr, cap):
+            if seen and "cap" not in seen[-1]:
+                seen[-1]["cap"] = cap
+            return fn(x2d, geom, thr, cap)
+        return spy
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        kseg, "multi_select", spy_select(kseg.multi_select)))
+    stack.enter_context(mock.patch.object(
+        kseg, "seg_compact_gt", spy_compact(kseg.seg_compact_gt)))
+    return stack
+
+
+def _full_update_twins(trainer, state, batch, results: dict, smi: str):
+    """One ``GradientSync.update`` on one step's gradients with the
+    kernels and one with the twins, from the same state: params,
+    residual, momentum, thresholds, phases and messages bitwise; then
+    kernels 1-3 timed on the update's arena."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segmented as kseg
+
+    sync = trainer._sync
+    grads = _model_grads(trainer.model, state.params, batch)
+    lr = torch.tensor(trainer.tc.lr, dtype=torch.float32, device="cuda")
+    density = trainer.density_at(state.step)
+
+    def update(sent):
+        def spy(ms, fn=sync.transport.allgather):
+            sent.append(list(ms))
+            return fn(ms)
+        from unittest import mock
+        with mock.patch.object(sync.transport, "allgather", spy):
+            return sync.update(grads, state.rgc, state.params, lr,
+                               density=density)
+
+    sent_k, seen = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _select_spies(seen):
+        got = update(sent_k)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    want = {k: v.cpu() for k, v in _leaves(*got).items()}
+    del got
+    arena = seen[0]
+    x2d, geom, thr, cap = (arena[k] for k in ("x2d", "geom", "thr", "cap"))
+    print(f"[model] 8a update with the kernels {t_k * 1e3:.1f} ms; arena "
+          f"{geom.nblocks:,} rows x 1024 ({x2d.numel():,} elements, "
+          f"{geom.n_seg} slots, bucket {cap}), thresholds "
+          f"{[float(t) for t in thr]}")
+
+    # kernels 1-3 on this arena, 20 launches in one CUDA graph
+    nb, nseg, xbytes, elems = geom.nblocks, geom.n_seg, x2d.numel() * 4, \
+        x2d.numel()
+    timing = {
+        "seg_abs_sum_max": (
+            lambda: kseg.seg_abs_sum_max(x2d, geom),
+            lambda: ref.seg_abs_sum_max(x2d, geom.block_seg,
+                                        geom.block_size, nseg),
+            xbytes + nseg * (8 + 4 * 3) + 2 * nseg * 4, 3 * elems),
+        "seg_count_gt": (
+            lambda: kseg.seg_count_gt(x2d, geom, thr),
+            lambda: ref.seg_count_gt(x2d, geom.block_seg, thr, nseg),
+            xbytes + nb * 4 + 2 * nseg * 4, 3 * elems),
+        "seg_compact_gt": (
+            lambda: kseg.seg_compact_gt(x2d, geom, thr, cap),
+            lambda: ref.seg_compact_gt(x2d, geom.block_seg, geom.block_base,
+                                       geom.block_size, thr, cap),
+            xbytes + 3 * nb * 4 + nseg * 4 + nb * cap * 8 + nb * 4,
+            3 * elems),
+    }
+    for name, (kern, plain, nbytes, ops) in timing.items():
+        time_kernel(f"{name} at the internlm2-1.8b arena", kern, plain,
+                    nbytes, ops)
+    del x2d, arena, seen, timing
+    torch.cuda.empty_cache()
+
+    sent_t = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _twins_patched():
+        got = update(sent_t)
+    torch.cuda.synchronize()
+    t_t = time.perf_counter() - t0
+    have = _leaves(*got)
+    same = have.keys() == want.keys() and all(
+        torch.equal(_bits(have[k]), _bits(want[k].to("cuda")))
+        for k in want)
+    msgs = (len(sent_k) == len(sent_t) == 1
+            and len(sent_k[0]) == len(sent_t[0])
+            and all(torch.equal(_bits(a), _bits(b))
+                    for a, b in zip(sent_k[0], sent_t[0])))
+    n_msg = sum(m.numel() for m in sent_k[0]) if sent_k else 0
+    print(f"[model] 8a one full-width update, kernels vs twins from the "
+          f"same state: {len(want)} params / residual / momentum / "
+          f"threshold / phase leaves bitwise equal: {same}; "
+          f"{len(sent_k[0]) if sent_k else 0} wire messages "
+          f"({n_msg:,} words, the selected indices inside) bitwise equal: "
+          f"{msgs}; twins' update {t_t * 1e3:.1f} ms; {smi}")
+    if not (same and msgs):
+        _fail("phase 8a: the full-width update with the kernels differs "
+              "from the one with the twins")
+    del got, have, want, grads
+
+
+def phase_models(results: dict, smi: str) -> None:
+    """8a internlm2-1.8b FULL, 8b gemma3-4b at 6 layers, 8c paligemma-3b
+    at 2 layers; see the module docstring."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import profile_steps
+
+    t_phase = time.perf_counter()
+    cfg = get_config("internlm2-1.8b")
+    trainer, state, data, launches = _train_model(
+        "8a internlm2-1.8b", cfg, MODEL_BATCH, MODEL_SEQ, MODEL_STEPS, smi)
+    for name in SEG_KERNELS:
+        if not launches.get(name):
+            _fail(f"phase 8a: {name} was not launched")
+    for name in results:
+        results[name]["launches"]["8a_internlm2"] = launches.get(name, 0)
+    print(f"[profile] 8a internlm2-1.8b ({smi}):")
+    profile_steps(trainer, state, data, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(data).items()}
+    _full_update_twins(trainer, state, batch, results, smi)
+    del trainer, state, data, batch
+    gc.collect()
+
+    gemma = dataclasses.replace(get_config("gemma3-4b"), num_layers=6)
+    if gemma.pattern_codes() != (1, 1, 1, 1, 1, 0):
+        _fail(f"phase 8b: layer codes {gemma.pattern_codes()}")
+    out = _train_model("8b gemma3-4b (6 of 34 layers)", gemma, 1, 4096, 2,
+                       smi)
+    del out
+    gc.collect()
+    pali = dataclasses.replace(get_config("paligemma-3b"), num_layers=2)
+    out = _train_model("8c paligemma-3b (2 of 18 layers, 256-token prefix)",
+                       pali, 1, 1024, 2, smi)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[model] phase 8 {time.perf_counter() - t_phase:.1f} s; {smi}")
+    print("[model] OK: internlm2-1.8b full width trained with kernels 1-3, "
+          "kernels == twins on a full-width update; gemma3-4b and "
+          "paligemma-3b trained")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2403,6 +2687,7 @@ def main(argv: list[str] | None = None) -> int:
     default_steps = phase_train(results, args.profile)
     phase_dist(results, default_steps, smi)
     phase_ckpt(results, smi)
+    phase_models(results, smi)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",

@@ -67,6 +67,16 @@ class ModelConfig:
     loss_chunk: int = 2048
     wkv_chunk: int = 64
 
+    def pattern_codes(self) -> tuple[int, ...]:
+        """Per-layer code: 0 = global/full attn, 1 = local/SWA,
+        2 = recurrent."""
+        if self.layer_pattern is None:
+            return tuple(1 if self.window_size else 0
+                         for _ in range(self.num_layers))
+        table = {"G": 0, "L": 1, "R": 2}
+        pat = [table[c] for c in self.layer_pattern]
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
 
 @dataclass(frozen=True)
 class TrainConfig:

@@ -6,14 +6,21 @@ parity run initialises in JAX and moves the values across:
     params_np = jax.tree.map(np.asarray, params)      # JAX side
     params = convert.from_numpy(params_np, device)    # port side
 
-Parameters map one to one (``embed.table``, ``lm_head``, ``lm_bias``,
-``lstm_i.{wx,wh,b}``; same layouts, no transposes). A ``LeafState``
-tree (any named tuple with the reference's five fields at the leaves)
-becomes the port's ``LeafState`` tree, and a buffered schedule's state
-(any named tuple with ``ScheduleState``'s fields ``leaf`` and
-``pending``) the port's ``ScheduleState``: its LeafState tree, and its
-pending messages as a flat tuple (``stale1``) or a ring of tuples
-(``staleK``); ``to_numpy`` goes the other way.
+Parameters map one to one, same layouts, no transposes. The paper's
+LSTM: ``embed.table``, ``lm_head``, ``lm_bias``, ``lstm_i.{wx,wh,b}``.
+The transformer chassis (dense and vlm): ``embed.table`` (and
+``embed.lm_head`` when untied), ``layers.{attn.{wq,wk,wv,wo,q_norm,k_norm},
+ffn.{w_gate,w_up,w_down},norm_attn,norm_ffn}``, each stacked on a
+leading layer axis (``q_norm`` / ``k_norm`` only with qk-norm), and
+``final_norm``.
+
+A ``LeafState`` tree (any named tuple with the reference's five fields
+at the leaves) becomes the port's ``LeafState`` tree, and a buffered
+schedule's state (any named tuple with ``ScheduleState``'s fields
+``leaf`` and ``pending``) the port's ``ScheduleState``: its LeafState
+tree, and its pending messages as a flat tuple (``stale1``) or a ring of
+tuples (``staleK``); ``to_numpy`` goes the other way.
+
 numpy has no bfloat16 of its own: a bf16 array (JAX's ``ml_dtypes``
 type) crosses by its bits, and a bf16 tensor comes back as float32,
 which holds every bf16 value exactly.

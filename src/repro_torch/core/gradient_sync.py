@@ -324,6 +324,14 @@ class GradientSync:
             v2d = arena.gather(group, _by_leaf(group, states, "residual"))
             u2d = (arena.gather(group, _by_leaf(group, states, "momentum"))
                    if need_u else None)
+            # the arenas now hold every slot's accumulated V (and U), and
+            # _finish_group rewrites those fields from the masked arenas:
+            # drop the per-leaf copies (at full width a second copy of the
+            # residual and velocity, 15 GB for internlm2-1.8b)
+            none = v2d.new_zeros(())
+            states = [st._replace(residual=none,
+                                  momentum=none if need_u else st.momentum)
+                      for st in states]
             return v2d, u2d, None, states
 
         if self.fuse_accumulate:

@@ -41,6 +41,13 @@ def _i64(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
 
+# The row-wise segmented twins walk the arena in blocks of this many rows,
+# so their int64 and bool temporaries stay a fraction of the arena (at the
+# 1.89e9-element arena of internlm2-1.8b a whole-arena int64 temporary is
+# 15 GB). Rows are independent, so the results do not depend on it.
+TWIN_ROWS = 1 << 16
+
+
 def seg_abs_sum_max(x2d: torch.Tensor, block_seg, block_size, n_seg: int,
                     stride_seg=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-segment (sum|x|, max|x|): ``pinned_sum`` over each slot's
@@ -50,11 +57,10 @@ def seg_abs_sum_max(x2d: torch.Tensor, block_seg, block_size, n_seg: int,
     ``[::stride]`` subsample of true length ``ceil(n / stride)``, the
     vector the sampled selector searches; ``None`` / stride 1 is exact.
     """
-    ax = x2d.to(torch.float32).abs()
     bsize = np.asarray(block_size)
     sums, maxs = [], []
     for s, (r0, r1) in enumerate(_seg_rows(block_seg)):
-        seg = ax[r0:r1]
+        seg = x2d[r0:r1].to(torch.float32).abs()
         stride = 1 if stride_seg is None else int(stride_seg[s])
         if stride > 1:
             vec = seg.reshape(-1)[:int(bsize[r0]):stride]
@@ -75,13 +81,16 @@ def seg_count_gt(x2d: torch.Tensor, block_seg, thresholds: torch.Tensor,
     row, so that is the slot-local ``[::stride]`` grid."""
     seg = _i64(block_seg, x2d.device)
     thr_b = thresholds.to(torch.float32)[seg]
-    mask = x2d.to(torch.float32).abs() > thr_b[:, None]
-    if stride_b is not None:
-        col = torch.arange(x2d.shape[1], device=x2d.device)[None, :]
-        mask = mask & (col % _i64(stride_b, x2d.device)[:, None] == 0)
-    cnt_b = mask.sum(1)
+    stride_t = None if stride_b is None else _i64(stride_b, x2d.device)
+    col = torch.arange(x2d.shape[1], device=x2d.device)[None, :]
     out = torch.zeros(n_seg, dtype=torch.int64, device=x2d.device)
-    return out.index_add_(0, seg, cnt_b).to(torch.int32)
+    for r0 in range(0, x2d.shape[0], TWIN_ROWS):
+        r1 = min(r0 + TWIN_ROWS, x2d.shape[0])
+        mask = x2d[r0:r1].to(torch.float32).abs() > thr_b[r0:r1, None]
+        if stride_t is not None:
+            mask = mask & (col % stride_t[r0:r1, None] == 0)
+        out.index_add_(0, seg[r0:r1], mask.sum(1))
+    return out.to(torch.int32)
 
 
 def seg_compact_gt(x2d: torch.Tensor, block_seg, block_base, block_size,
@@ -91,18 +100,27 @@ def seg_compact_gt(x2d: torch.Tensor, block_seg, block_base, block_size,
     |x| > thr of the owning segment (and slot-local index < slot size),
     packed to the front: (values [nb, cap], slot-local i32 indices
     [nb, cap] padded with the slot size, pre-clamp counts [nb])."""
-    nb, block = x2d.shape
     dev = x2d.device
-    x = x2d.to(torch.float32)
     seg, base, size = (_i64(a, dev)
                        for a in (block_seg, block_base, block_size))
     thr_b = thresholds.to(torch.float32)[seg]
+    parts = [_compact_rows(x2d[r0:r0 + TWIN_ROWS], base[r0:r0 + TWIN_ROWS],
+                           size[r0:r0 + TWIN_ROWS], thr_b[r0:r0 + TWIN_ROWS],
+                           cap_per_block)
+             for r0 in range(0, x2d.shape[0], TWIN_ROWS)]
+    return tuple(torch.cat(t) for t in zip(*parts))
 
+
+def _compact_rows(x2d, base, size, thr_b, cap: int):
+    """``seg_compact_gt`` of a block of rows, given their per-row slot
+    base, slot size and threshold."""
+    nb, block = x2d.shape
+    dev = x2d.device
+    x = x2d.to(torch.float32)
     lidx = base[:, None] + torch.arange(block, device=dev)[None, :]
     mask = (x.abs() > thr_b[:, None]) & (lidx < size[:, None])
     cnts = mask.sum(1).to(torch.int32)
 
-    cap = cap_per_block
     pos = torch.cumsum(mask, 1) - 1
     live = mask & (pos < cap)
     row = torch.arange(nb, device=dev)[:, None]

@@ -1,9 +1,13 @@
 """Training launcher (port of ``src/repro/launch/train.py``).
 
-Runs the paper's LSTM LM with RGC, CUDA by default; on one device, or
-data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
-``torchrun``, whose environment gives the rank, world size and address.
-``--batch`` is the GLOBAL batch, split over the ranks as in JAX:
+Trains a registry model with RGC, CUDA by default: ``--arch`` is the
+paper's LSTM LM (``paper-lstm``) or one of the transformer configs
+ported so far (``internlm2-1.8b``, ``qwen3-32b``, ``h2o-danube-3-4b``,
+``gemma3-4b``, ``paligemma-3b``; ``--smoke`` for the reduced width). It
+runs on one device, or data parallel over ``--mesh D`` (or ``Dx1``)
+ranks started by ``torchrun``, whose environment gives the rank, world
+size and address. ``--batch`` is the GLOBAL batch, split over the ranks
+as in JAX:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 20 --batch 20 --seq 35
@@ -28,6 +32,10 @@ data parallel over ``--mesh D`` (or ``Dx1``) ranks started by
       --steps 4 --batch 20 --seq 35 --ckpt-dir ckpt --ckpt-every 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-lstm \
       --steps 6 --batch 20 --seq 35 --ckpt-dir ckpt --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+      --steps 4 --batch 2 --seq 4096 --data zipf --density 0.001
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
+      --smoke --steps 2 --batch 2 --seq 32 --data zipf --device cpu
 
 On a mesh the backend is ``nccl`` on the card (one rank per card:
 ``cuda:LOCAL_RANK``) and ``gloo`` on the CPU. The two-axis
@@ -35,10 +43,15 @@ On a mesh the backend is ``nccl`` on the card (one rank per card:
 ``Trainer(mesh=...)``, as in the JAX harness.
 
 ``--data`` picks the seeded stream (``bigram``: the learnable chain,
-``zipf``: ``SyntheticLM``). ``--ckpt-dir`` / ``--ckpt-every N`` save a
-checkpoint chain every N steps and at the end; ``--resume`` restores the
-latest one (bitwise at the same worker count, redistributed at another)
-and replays the stream to its step, so ``--steps`` counts from step 0.
+``zipf``: ``SyntheticLM``). ``bigram`` draws a dense ``vocab x vocab``
+float64 transition matrix, 68 GB at vocab 92,544, so the transformer
+configs at full width take ``--data zipf``. A vlm config (paligemma)
+gets the reference's stub patch embeddings, one seeded batch of them
+attached to every batch as ``prefix_embeds``. ``--ckpt-dir`` /
+``--ckpt-every N`` save a checkpoint chain every N steps and at the end;
+``--resume`` restores the latest one (bitwise at the same worker count,
+redistributed at another) and replays the stream to its step, so
+``--steps`` counts from step 0.
 
 ``--profile N`` trains N more steps under ``torch.profiler`` and prints
 the device time by kernel and the device's busy share of those steps.
@@ -70,10 +83,12 @@ def _mesh_from_env(spec: str, device):
 
 
 def main(argv: list[str] | None = None) -> None:
+    from repro_torch.configs import ARCH_IDS
     from repro_torch.core import registry
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=["paper-lstm"], required=True)
+    ap.add_argument("--arch", choices=["paper-lstm", *ARCH_IDS],
+                    required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)
@@ -134,12 +149,13 @@ def main(argv: list[str] | None = None) -> None:
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume requires --ckpt-dir")
 
-    from repro_torch.configs import paper_lstm
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
     from repro_torch.data.synthetic import SyntheticLM, bigram_batches
     from repro_torch.train.trainer import Trainer
 
-    cfg = paper_lstm.smoke() if args.smoke else paper_lstm.FULL
+    cfg = get_config(args.arch, smoke=args.smoke)
     tc = TrainConfig(lr=args.lr, momentum=args.momentum,
                      optimizer=args.optimizer, transport=args.transport,
                      schedule=args.schedule, density=args.density,
@@ -161,7 +177,7 @@ def main(argv: list[str] | None = None) -> None:
             print(f"resumed from step {state.step} in {args.ckpt_dir}")
     else:
         state = trainer.init_state()
-    n = sum(p.numel() for p in trainer.model.parameters())
+    n = sum(p.numel() for p in tree.flatten(state.params)[0])
     if mesh is not None and mesh.rank != 0:
         args.log_every = 0      # rank 0 reports the (rank-mean) loss
     else:
@@ -176,15 +192,31 @@ def main(argv: list[str] | None = None) -> None:
     else:
         batches = iter(SyntheticLM(cfg.vocab_size, args.batch, args.seq,
                                    seed=tc.seed))
+    if cfg.family == "vlm":
+        batches = _with_stub(batches, trainer.model.make_train_batch(
+            args.batch, args.seq))
     for _ in range(state.step):             # deterministic batch replay
         next(batches)
-    state = trainer.run(state, batches, max(0, args.steps - state.step),
-                        log_every=args.log_every)
+    # hand the state over without keeping a reference: held here, the
+    # initial state would outlive the first step beside the current one
+    # (at internlm2-1.8b's full width, 17.6 GiB of params, residual and
+    # velocity more than the card has room for)
+    box, steps = [state], max(0, args.steps - state.step)
+    del state
+    state = trainer.run(box.pop(), batches, steps, log_every=args.log_every)
     if args.profile:
         profile_steps(trainer, state, batches, args.profile)
     if mesh is not None:
         import torch.distributed as dist
         dist.destroy_process_group()
+
+
+def _with_stub(src, stub: dict):
+    """Attach the modality stub (every key of ``stub`` but the tokens) to
+    each batch of ``src``, as the reference's launcher does."""
+    extra = {k: v for k, v in stub.items() if k != "tokens"}
+    for b in src:
+        yield {**b, **extra}
 
 
 def profile_steps(trainer, state, batches, n: int) -> None:

@@ -1,1 +1,3 @@
-"""Models (reference: ``src/repro/models``); only ``lstm`` so far."""
+"""Models (reference: ``src/repro/models``): the paper's ``lstm`` and
+the transformer chassis (``common``, ``attention``, ``transformer``) of
+the dense and vlm families, behind ``registry.get_model``."""

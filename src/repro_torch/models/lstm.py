@@ -1,4 +1,4 @@
-"""The paper's 2-layer LSTM LM as an ``nn.Module``.
+"""The paper's 2-layer LSTM LM: parameter definitions, init and loss.
 
 Port of ``src/repro/models/lstm.py``. The JAX layout is kept so the
 parameters carry across one to one (``repro_torch.convert``): weights are
@@ -12,7 +12,6 @@ steps is one product ahead of the recurrence.
 from __future__ import annotations
 
 import torch
-import torch.nn as nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
@@ -83,37 +82,3 @@ def loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return (lse - gold).sum() / max(labels.numel(), 1)
-
-
-class LSTMLM(nn.Module):
-    """The LM as a module: parameters in ``ParameterDict``s named as the
-    reference's tree (``embed.table``, ``lm_head``, ``lm_bias``,
-    ``lstm_i.{wx,wh,b}``); ``forward(tokens)`` returns the loss."""
-
-    def __init__(self, cfg: ModelConfig, params: dict):
-        super().__init__()
-        self.cfg = cfg
-        for name, sub in params.items():
-            if isinstance(sub, dict):
-                setattr(self, name, nn.ParameterDict(
-                    {k: nn.Parameter(v) for k, v in sub.items()}))
-            else:
-                setattr(self, name, nn.Parameter(sub))
-
-    def params(self) -> dict:
-        """The parameters as the reference's nested-dict tree."""
-        out = {}
-        for name, mod in self.named_children():
-            out[name] = {k: v for k, v in mod.items()}
-        for name, p in self.named_parameters(recurse=False):
-            out[name] = p
-        return out
-
-    def set_params(self, params: dict) -> None:
-        """Point every parameter at the matching tensor of ``params``."""
-        for p, new in zip(tree.flatten(self.params())[0],
-                          tree.flatten(params)[0]):
-            p.data = new
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return loss(self.cfg, self.params(), tokens)

@@ -1,10 +1,13 @@
 """RGC trainer: one device, or pure data parallelism over a mesh.
 
 Port of ``src/repro/train/trainer.py``: its ``mesh=None`` path and its
-pure data-parallel path (``flat_step``). Each step computes the loss and
-LOCAL gradients of the LSTM LM (``torch.autograd.grad``) and hands them
-to ``GradientSync.update`` (residual + momentum correction -> selection
--> pack -> allgather -> decompress -> SGD apply).
+pure data-parallel path (``flat_step``). The model comes from
+``models.registry.get_model``: the paper's LSTM LM or a transformer of
+the dense or vlm family. Each step computes ``model.loss(params, batch)``
+on this rank's rows of every batch key and its LOCAL gradients
+(``torch.autograd.grad``) and hands them to ``GradientSync.update``
+(residual + momentum correction -> selection -> pack -> allgather ->
+decompress -> SGD apply).
 
 With ``mesh`` (a ``launch.mesh.Mesh`` without a ``"model"`` axis) every
 rank holds the whole parameter tree, made from the same seed, and takes
@@ -40,7 +43,7 @@ from repro_torch.core import sync as sync_lib
 from repro_torch.core import tree
 from repro_torch.core.gradient_sync import GradientSync, build_gradient_sync
 from repro_torch.core.schedule import DensitySchedule
-from repro_torch.models import lstm
+from repro_torch.models.registry import Model, get_model
 
 
 @dataclass
@@ -90,21 +93,22 @@ def make_gradient_sync(tc: TrainConfig, device, mesh=None,
     )
 
 
-def make_train_step(model: lstm.LSTMLM, sync: GradientSync,
+def make_train_step(model: Model, sync: GradientSync,
                     tc: TrainConfig, *, density: Optional[float] = None,
                     mesh=None) -> Callable:
-    """(params, rgc_state, tokens, lr) -> (loss, new_params, new_state);
-    ``tokens`` are this rank's rows, the loss the mean over ranks."""
+    """(params, rgc_state, batch, lr) -> (loss, new_params, new_state);
+    ``batch`` holds this rank's rows, the loss is the mean over ranks."""
     axes = _batch_axes(mesh)
     dens = tc.density if density is None else density
     if tc.optimizer == "dense":
         dens = 1.0
 
-    def step(params, rgc_state, tokens, lr):
-        model.set_params(params)
-        leaves, treedef = tree.flatten(model.params())
-        loss = model(tokens)
+    def step(params, rgc_state, batch, lr):
+        leaves, treedef = tree.flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss = model.loss(tree.unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
+        del leaves
         new_params, new_state = sync.update(
             tree.unflatten(treedef, list(grads)), rgc_state, params, lr,
             density=dens)
@@ -114,8 +118,8 @@ def make_train_step(model: lstm.LSTMLM, sync: GradientSync,
 
 
 class Trainer:
-    """End-to-end training loop for the LSTM LM, on one device or data
-    parallel over ``mesh``, with checkpoints into ``ckpt_dir`` every
+    """End-to-end training loop for a registry model (``get_model``), on
+    one device or data parallel over ``mesh``, with checkpoints into ``ckpt_dir`` every
     ``ckpt_every`` steps (0: only at the end of ``run``; no
     ``ckpt_dir``: none) and a full snapshot every ``ckpt_full_every``-th
     save."""
@@ -124,10 +128,7 @@ class Trainer:
                  device: str | torch.device | None = None, mesh=None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  ckpt_full_every: int = 4):
-        if arch_cfg.family != "lstm":
-            raise NotImplementedError(
-                f"model family {arch_cfg.family!r} is not ported yet "
-                f"(see ROADMAP.md)")
+        self.model = get_model(arch_cfg)
         self.device = resolve_device(device)
         self.cfg = arch_cfg
         self.tc = tc
@@ -142,17 +143,14 @@ class Trainer:
             dense_warmup=tc.dense_warmup)
         self._sync = make_gradient_sync(tc, self.device, mesh)
         self._steps: dict[float, Callable] = {}
-        self.model: lstm.LSTMLM | None = None
 
     def init_state(self, seed: Optional[int] = None,
                    params: Optional[dict] = None) -> TrainState:
         """Fresh state: the port's own random init from ``seed`` (default
         ``tc.seed``) or, for parity runs, the given ``params`` tree."""
         if params is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.tc.seed if seed is None else seed)
-            params = lstm.init_params(self.cfg, gen, self.device)
-        self.model = lstm.LSTMLM(self.cfg, params)
+            params = self.model.init_params(
+                self.tc.seed if seed is None else seed, self.device)
         return TrainState(params=params, rgc=self._sync.init(params), step=0)
 
     def density_at(self, step: int) -> float:
@@ -168,19 +166,19 @@ class Trainer:
                 mesh=self.mesh)
         return self._steps[density]
 
-    def _local_rows(self, tokens):
-        """This rank's contiguous rows of a global batch (all of it
-        without a mesh)."""
+    def _local_rows(self, rows):
+        """This rank's contiguous rows of one key of a global batch (all
+        of it without a mesh)."""
         if self.mesh is None:
-            return tokens
+            return rows
         axes = _batch_axes(self.mesh)
         p = self.mesh.axes_size(axes)
-        if tokens.shape[0] % p:
-            raise ValueError(f"global batch {tokens.shape[0]} does not "
+        if rows.shape[0] % p:
+            raise ValueError(f"global batch {rows.shape[0]} does not "
                              f"split over {p} workers")
-        n = tokens.shape[0] // p
+        n = rows.shape[0] // p
         i = self.mesh.index(axes)
-        return tokens[i * n:(i + 1) * n]
+        return rows[i * n:(i + 1) * n]
 
     # -- fault-tolerance checkpointing --------------------------------------
 
@@ -300,16 +298,16 @@ class Trainer:
         """``batches`` yields GLOBAL batches; each rank trains on its
         rows. ``on_metrics(step, density, loss)`` fires every step (and
         waits for the step's loss)."""
-        if self.model is None:
-            raise RuntimeError("call init_state() before run()")
         lr = torch.tensor(self.tc.lr, dtype=torch.float32, device=self.device)
         it = iter(batches)
         for _ in range(num_steps):
-            tokens = torch.as_tensor(self._local_rows(next(it)["tokens"]),
-                                     device=self.device)
+            batch = {k: torch.as_tensor(self._local_rows(v),
+                                        device=self.device)
+                     for k, v in next(it).items()}
             density = self.density_at(state.step)
             loss, params, rgc_state = self._step_fn(density)(
-                state.params, state.rgc, tokens, lr)
+                state.params, state.rgc, batch, lr)
+            del batch
             state = TrainState(params, rgc_state, state.step + 1)
             if on_metrics is not None:
                 on_metrics(state.step, density, float(loss))
@@ -321,5 +319,4 @@ class Trainer:
                 self.save_checkpoint(state)
         if self.ckpt_dir and self._manager().latest_step() != state.step:
             self.save_checkpoint(state)
-        self.model.set_params(state.params)
         return state
