@@ -150,15 +150,42 @@ the JAX package. Phases, each fatal on failure:
    step's gradients with the kernels and one with the twins from the
    same state (params, residual, momentum, thresholds, phases and the
    wire messages bitwise; the kernel run's result is held on the host),
-   and kernels 1-3 timed on that update's arena (20 launches in one CUDA
-   graph) beside their bounds; (8b) ``gemma3-4b`` at 6 of its 34 layers
+   and, between the two, kernels 1-3 on that update's arena at its
+   thresholds and bucket (each output bitwise its twin's, then 20
+   launches in one CUDA graph beside the bound) and 7e / 8 on the
+   largest input the update gave them (bitwise their twins'); (8b) ``gemma3-4b`` at 6 of its 34 layers
    (one ``L L L L L G`` cycle: window 1024 and theta 10k, then global
    theta 1M) and (8c) ``paligemma-3b`` at 2 of its 18 layers (a
    256-token bidirectional stub prefix plus 1024 text tokens), batch 1,
    2 steps each: losses finite, params moved, peak memory printed;
-9. a JSON line per kernel (time, bound, launches on each path, on rank 0
-   of the p = 2 default path, over phase 7a's runs and over phase 8a's
-   steps, error), then the last line ``{"ok": true, "device": {...}}``.
+9. the MoE FFN (``models/moe.py``) on the transformer chassis:
+   (9a) ``granite-moe-3b-a800m`` FULL at 20 of its 32 layers (d_model
+   1536, 40 experts of d_ff 512, top-8, scatter dispatch, bf16;
+   2,090,059,776 params; 20 layers is the deepest cut whose bsearch
+   arena, 2,088,768,512 elements, stays below the int32 limit of its
+   message indices), batch 2 x seq 4096 for 4 steps as 8a with
+   ``TrainConfig(local_clip=1.0)`` (``GRANITE_TRAIN`` says why): losses
+   finite, each step's wall time, the peak device memory, the arenas'
+   sizes (fails at the int32 limit), the launches (fails unless kernels
+   1-3 launch), one profiled step, each leaf's largest gradient beside
+   its largest entry, one update with the kernels, and kernels 1-3 on
+   its bsearch arena and 7e / 8 on their largest inputs, each against
+   its twin bitwise, then the same update with the twins, bitwise, as
+   8a;
+   (9b) one MoE layer at full width on 512 tokens in f32, of granite
+   (capacity factor 1.25 and 0.1) and of ``grok-1-314b`` (d_model 6144,
+   8 experts of d_ff 32768, top-2; 1.25): ``gate_idx`` / ``slot`` /
+   ``keep`` identical under the one-hot and scatter forms and equal to
+   the same function on the CPU, the forms' outputs, aux loss and
+   gradients (x and every MoE leaf) within ``tests/test_torch_moe.py``'s
+   tolerances, drops at 0.1, everything finite, each form's forward +
+   backward time;
+   (9c) ``grok-1-314b`` smoke (top-2, softcap 30, untied), batch 2 x
+   128, 2 steps: losses finite, params moved;
+10. a JSON line per kernel (time, bound, launches on each path, on rank
+   0 of the p = 2 default path, over phase 7a's runs and over phase 8a's
+   and 9a's steps, error), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero without a result when no CUDA device is present or the
 port is not beside this script.
@@ -2402,8 +2429,8 @@ def _model_data(model, batch: int, seq: int):
 
 
 def _train_model(label: str, cfg, batch: int, seq: int, steps: int,
-                 smi: str):
-    """``Trainer(cfg, TrainConfig())`` for ``steps`` steps of the zipf
+                 smi: str, tc=None):
+    """``Trainer(cfg, tc or TrainConfig())`` for ``steps`` steps of the zipf
     stream with the launch counts zeroed first; prints each step's loss
     and wall time, the peak device memory and the launches, and fails on
     a non-finite loss or params that did not move. Returns (trainer,
@@ -2417,7 +2444,7 @@ def _train_model(label: str, cfg, batch: int, seq: int, steps: int,
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(cfg, TrainConfig())
+    trainer = Trainer(cfg, tc or TrainConfig())
     # no reference to the initial state may outlive the first step: it
     # would hold a second full copy of params, residual and velocity
     box = [trainer.init_state()]
@@ -2455,9 +2482,9 @@ def _train_model(label: str, cfg, batch: int, seq: int, steps: int,
           f"moved; launches over {steps} steps {launches}; branches "
           f"{dict(common.branches)}; {smi}")
     if not all(math.isfinite(loss) for _, loss, _ in rec):
-        _fail(f"phase 8 {label}: non-finite loss")
+        _fail(f"phase {label}: non-finite loss")
     if not moved:
-        _fail(f"phase 8 {label}: the params did not move")
+        _fail(f"phase {label}: the params did not move")
     return trainer, state, data, launches
 
 
@@ -2503,49 +2530,86 @@ def _select_spies(seen: list):
     return stack
 
 
-def _full_update_twins(trainer, state, batch, results: dict, smi: str):
-    """One ``GradientSync.update`` on one step's gradients with the
-    kernels and one with the twins, from the same state: params,
-    residual, momentum, thresholds, phases and messages bitwise; then
-    kernels 1-3 timed on the update's arena."""
+def _leaf_spies(calls: dict):
+    """A context recording into ``calls`` the largest call (by elements)
+    that an update makes of the per-leaf kernels on its path: 7e
+    ``compact_gt_exact`` (an arena slot after a bucket overflow) and 8
+    ``residual_update`` (an f32 leaf): name -> (wrapper, args, kwargs)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels import compact, residual_update
+
+    def spy(name, fn):
+        def record(x, *args, **kwargs):
+            if name not in calls or x.numel() > calls[name][1][0].numel():
+                calls[name] = (fn, (x, *args), kwargs)
+            return fn(x, *args, **kwargs)
+        return record
+    stack = contextlib.ExitStack()
+    for mod, name in ((compact, "compact_gt_exact"),
+                      (residual_update, "residual_update")):
+        stack.enter_context(mock.patch.object(
+            mod, name, spy(name, getattr(mod, name))))
+    return stack
+
+
+def _sync_update(trainer, state, grads, sent: list):
+    """The trainer's ``GradientSync.update`` of ``state`` on ``grads``;
+    the wire messages go into ``sent``. Returns (params, rgc state)."""
+    from unittest import mock
+
+    import torch
+    sync = trainer._sync
+    lr = torch.tensor(trainer.tc.lr, dtype=torch.float32, device="cuda")
+
+    def spy(ms, fn=sync.transport.allgather):
+        sent.append(list(ms))
+        return fn(ms)
+    with mock.patch.object(sync.transport, "allgather", spy):
+        return sync.update(grads, state.rgc, state.params, lr,
+                           density=trainer.density_at(state.step))
+
+
+def _kernel_update(trainer, state, grads, label: str):
+    """One update with the kernels on one step's gradients; prints its
+    time (host clock, drained) and its bsearch arena. Returns (params and
+    state leaves by path, wire messages, the first ``multi_select``'s
+    arena, the largest 7e / 8 calls)."""
+    import torch
+
+    sent, seen, calls = [], [], {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _select_spies(seen), _leaf_spies(calls):
+        got = _sync_update(trainer, state, grads, sent)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    arena = seen[0]
+    x2d, geom, thr, cap = (arena[k] for k in ("x2d", "geom", "thr", "cap"))
+    print(f"[model] {label} update with the kernels {t_k * 1e3:.1f} ms; "
+          f"arena {geom.nblocks:,} rows x 1024 ({x2d.numel():,} elements, "
+          f"{geom.n_seg} slots, bucket {cap}), thresholds "
+          f"{[float(t) for t in thr]}")
+    return _leaves(*got), sent, arena, calls
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _check_arena_kernels(arena: dict, arena_of: str, smi: str) -> None:
+    """Kernels 1-3 on one update's arena, at its thresholds and bucket:
+    every output bitwise its twin's (fails otherwise); then each timed,
+    20 launches in one CUDA graph, beside its bound and its twin."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import segmented as kseg
 
-    sync = trainer._sync
-    grads = _model_grads(trainer.model, state.params, batch)
-    lr = torch.tensor(trainer.tc.lr, dtype=torch.float32, device="cuda")
-    density = trainer.density_at(state.step)
-
-    def update(sent):
-        def spy(ms, fn=sync.transport.allgather):
-            sent.append(list(ms))
-            return fn(ms)
-        from unittest import mock
-        with mock.patch.object(sync.transport, "allgather", spy):
-            return sync.update(grads, state.rgc, state.params, lr,
-                               density=density)
-
-    sent_k, seen = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _select_spies(seen):
-        got = update(sent_k)
-    torch.cuda.synchronize()
-    t_k = time.perf_counter() - t0
-    want = {k: v.cpu() for k, v in _leaves(*got).items()}
-    del got
-    arena = seen[0]
     x2d, geom, thr, cap = (arena[k] for k in ("x2d", "geom", "thr", "cap"))
-    print(f"[model] 8a update with the kernels {t_k * 1e3:.1f} ms; arena "
-          f"{geom.nblocks:,} rows x 1024 ({x2d.numel():,} elements, "
-          f"{geom.n_seg} slots, bucket {cap}), thresholds "
-          f"{[float(t) for t in thr]}")
-
-    # kernels 1-3 on this arena, 20 launches in one CUDA graph
     nb, nseg, xbytes, elems = geom.nblocks, geom.n_seg, x2d.numel() * 4, \
         x2d.numel()
-    timing = {
+    kernels = {
         "seg_abs_sum_max": (
             lambda: kseg.seg_abs_sum_max(x2d, geom),
             lambda: ref.seg_abs_sum_max(x2d, geom.block_seg,
@@ -2562,17 +2626,53 @@ def _full_update_twins(trainer, state, batch, results: dict, smi: str):
             xbytes + 3 * nb * 4 + nseg * 4 + nb * cap * 8 + nb * 4,
             3 * elems),
     }
-    for name, (kern, plain, nbytes, ops) in timing.items():
-        time_kernel(f"{name} at the internlm2-1.8b arena", kern, plain,
+    for name, (kern, plain, nbytes, ops) in kernels.items():
+        got, want = _outputs(kern()), _outputs(plain())
+        torch.cuda.synchronize()
+        same = len(got) == len(want) and all(
+            _same_bits(a, b) for a, b in zip(got, want))
+        print(f"[kernels] {name} at the {arena_of} arena ({elems:,} "
+              f"elements, bucket {cap}): kernel == twin bitwise: {same}; "
+              f"{smi}")
+        if not same:
+            _fail(f"{name} differs from its twin at the {arena_of} arena")
+        del got, want
+        time_kernel(f"{name} at the {arena_of} arena", kern, plain,
                     nbytes, ops)
-    del x2d, arena, seen, timing
-    torch.cuda.empty_cache()
+
+
+def _check_leaf_calls(calls: dict, label: str, smi: str) -> None:
+    """7e and 8, whichever the update launched, again on the arguments
+    of their largest call in it: kernel == twin bitwise (fails
+    otherwise)."""
+    import torch
+    twins = _leaf_twins()
+    for name, (fn, args, kwargs) in calls.items():
+        got, want = fn(*args, **kwargs), twins[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        same = len(got) == len(want) and all(
+            _same_bits(a, b) for a, b in zip(got, want))
+        print(f"[kernels] {label} {name} on the largest input the update "
+              f"gave it ({args[0].numel():,} elements): kernel == twin "
+              f"bitwise: {same}; {smi}")
+        if not same:
+            _fail(f"phase {label}: {name} differs from its twin on the "
+                  f"largest input of the update")
+        del got, want
+
+
+def _twins_update(trainer, state, grads, want: dict, sent_k: list,
+                  label: str, smi: str) -> None:
+    """The same update with every kernel replaced by its twin: params,
+    residual, momentum, thresholds, phases (``want``, on the host) and
+    wire messages (``sent_k``) bitwise those of the kernels' update."""
+    import torch
 
     sent_t = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _twins_patched():
-        got = update(sent_t)
+        got = _sync_update(trainer, state, grads, sent_t)
     torch.cuda.synchronize()
     t_t = time.perf_counter() - t0
     have = _leaves(*got)
@@ -2584,16 +2684,15 @@ def _full_update_twins(trainer, state, batch, results: dict, smi: str):
             and all(torch.equal(_bits(a), _bits(b))
                     for a, b in zip(sent_k[0], sent_t[0])))
     n_msg = sum(m.numel() for m in sent_k[0]) if sent_k else 0
-    print(f"[model] 8a one full-width update, kernels vs twins from the "
-          f"same state: {len(want)} params / residual / momentum / "
+    print(f"[model] {label} one full-width update, kernels vs twins from "
+          f"the same state: {len(want)} params / residual / momentum / "
           f"threshold / phase leaves bitwise equal: {same}; "
           f"{len(sent_k[0]) if sent_k else 0} wire messages "
           f"({n_msg:,} words, the selected indices inside) bitwise equal: "
           f"{msgs}; twins' update {t_t * 1e3:.1f} ms; {smi}")
     if not (same and msgs):
-        _fail("phase 8a: the full-width update with the kernels differs "
-              "from the one with the twins")
-    del got, have, want, grads
+        _fail(f"phase {label}: the full-width update with the kernels "
+              f"differs from the one with the twins")
 
 
 def phase_models(results: dict, smi: str) -> None:
@@ -2621,8 +2720,16 @@ def phase_models(results: dict, smi: str) -> None:
     torch.cuda.empty_cache()
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in next(data).items()}
-    _full_update_twins(trainer, state, batch, results, smi)
-    del trainer, state, data, batch
+    grads = _model_grads(trainer.model, state.params, batch)
+    leaves, sent, arena, calls = _kernel_update(trainer, state, grads, "8a")
+    want = {k: v.cpu() for k, v in leaves.items()}
+    del leaves
+    _check_arena_kernels(arena, "internlm2-1.8b", smi)
+    _check_leaf_calls(calls, "8a", smi)
+    del arena, calls
+    torch.cuda.empty_cache()
+    _twins_update(trainer, state, grads, want, sent, "8a", smi)
+    del trainer, state, data, batch, grads, want, sent
     gc.collect()
 
     gemma = dataclasses.replace(get_config("gemma3-4b"), num_layers=6)
@@ -2640,8 +2747,233 @@ def phase_models(results: dict, smi: str) -> None:
     torch.cuda.empty_cache()
     print(f"[model] phase 8 {time.perf_counter() - t_phase:.1f} s; {smi}")
     print("[model] OK: internlm2-1.8b full width trained with kernels 1-3, "
-          "kernels == twins on a full-width update; gemma3-4b and "
-          "paligemma-3b trained")
+          "kernels == twins on a full-width update and on its arena; "
+          "gemma3-4b and paligemma-3b trained")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the MoE FFN (moe family) at full width
+# ---------------------------------------------------------------------------
+
+# 9a: granite-moe-3b-a800m FULL at 20 of its 32 layers, the deepest cut
+# whose bsearch arena keeps its int32 message indices (below 2^31 - 1)
+GRANITE_LAYERS = 20
+# 9a's TrainConfig: the defaults and DGC's local gradient clipping. The
+# reference's init (``fan_in = shape[0]``, the layer count for stacked
+# leaves) gives this model's tied embedding table gradients of up to
+# ~5e7 against entries of ~0.12 (9a prints both), so plain RGC diverges
+# (NaN by step 3 at the default lr on an H100, and at lr 0.01 and
+# 0.001), as the reference's own trainer does at smoke width with 20
+# layers
+GRANITE_TRAIN = {"local_clip": 1.0}
+# 9b: one MoE layer at full width on this many tokens (f32), held to the
+# tolerances of tests/test_torch_moe.py: the output within rtol 1e-5 and
+# 1e-6 of its largest magnitude, aux rtol 1e-6, gradients within 1e-5 of
+# each one's largest magnitude
+MOE_TOKENS = 512
+MOE_OUT_TOL, MOE_AUX_RTOL, MOE_GRAD_TOL = 1e-6, 1e-6, 1e-5
+# 9b's archs and capacity factors (None: the config's own): granite's
+# and 0.1, where choices drop; grok-1-314b's (one layer: 4,831,838,208
+# expert params, 19.3 GB in f32, so both forms' gradients fit beside it)
+MOE_LAYERS = (("granite-moe-3b-a800m", (None, 0.1)),
+              ("grok-1-314b", (None,)))
+
+
+def _moe_run(cfg, params, x, ct):
+    """One MoE FFN forward and backward of ``sum(out * ct) + aux``;
+    returns (route, out, aux, grads by leaf name and ``x``, ms of the
+    forward + backward by CUDA events over 5 calls, timed first so that
+    no earlier gradients are held beside it)."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import moe
+
+    seen = []
+
+    def spy(*a, fn=moe._route):
+        seen.append(fn(*a))
+        return seen[-1]
+
+    def fwd_bwd():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        xx = x.detach().requires_grad_(True)
+        out, aux = moe.moe_ffn(cfg, p, xx)
+        grads = torch.autograd.grad(torch.sum(out * ct) + aux,
+                                    [*p.values(), xx])
+        return out.detach(), aux.detach(), dict(zip([*p, "x"], grads))
+    ms = cuda_ms(fwd_bwd, 5)
+    with mock.patch.object(moe, "_route", spy):
+        out, aux, grads = fwd_bwd()
+    return seen[0], out, aux, grads, ms
+
+
+def _close(got, want, rtol: float, atol_of_scale: float) -> tuple[bool,
+                                                                  float]:
+    """Whether ``got`` is within ``rtol`` of ``want`` plus
+    ``atol_of_scale`` times max |want|, and max |got - want|; with rtol
+    0, no temporary but the difference (a grok expert leaf is 6 GiB)."""
+    import torch
+    scale = float(torch.linalg.vector_norm(want, float("inf")))
+    diff = got - want
+    err = float(torch.linalg.vector_norm(diff, float("inf")))
+    del diff
+    ok = (bool(torch.allclose(got, want, rtol=rtol,
+                              atol=atol_of_scale * scale)) if rtol
+          else err <= atol_of_scale * scale)
+    return ok, err
+
+
+def phase_moe_layer(arch: str, factors, smi: str) -> None:
+    """9b: one MoE layer of ``arch`` at full width: routing identical
+    under both forms and on the CPU, one-hot == scatter within the CPU
+    tests' tolerances, at each capacity factor; drops at 0.1."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    params = init_params(moe.moe_defs(cfg), SEED, torch.float32, "cuda")
+    n_params = sum(v.numel() for v in params.values())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    ct = torch.randn(x.shape, generator=gen, device="cuda")
+    for factor in factors:
+        factor = factor or cfg.moe_capacity_factor
+        c = dataclasses.replace(cfg, moe_capacity_factor=factor)
+        cap = moe._capacity(MOE_TOKENS, c)
+        runs = {}
+        for impl in ("onehot", "scatter"):
+            runs[impl] = _moe_run(dataclasses.replace(c, moe_impl=impl),
+                                  params, x, ct)
+        cpu = moe._route(c, {"router": params["router"].cpu()},
+                         x.cpu().reshape(MOE_TOKENS, -1), cap)
+        same_route = all(
+            torch.equal(runs["onehot"][0][i], runs["scatter"][0][i])
+            and torch.equal(runs["scatter"][0][i].cpu(), cpu[i])
+            for i in (1, 2, 3))
+        keep = runs["scatter"][0][3]
+        dropped = int((~keep).sum())
+        (_, o1, a1, g1, ms1), (_, o2, a2, g2, ms2) = runs.values()
+        del runs
+        out_ok, out_err = _close(o1, o2, 1e-5, MOE_OUT_TOL)
+        aux_ok = abs(float(a1) - float(a2)) <= MOE_AUX_RTOL * abs(float(a2))
+        finite = all(bool(torch.isfinite(t).all()) for t in (o1, o2, a1, a2))
+        grad = {}
+        for k in list(g2):
+            grad[k] = _close(g1[k], g2[k], 0.0, MOE_GRAD_TOL)
+            finite &= bool(torch.isfinite(g1[k]).all()
+                           and torch.isfinite(g2[k]).all())
+            del g1[k], g2[k]
+        print(f"[moe] 9b one MoE layer of {arch} at full width (d_model "
+              f"{cfg.d_model}, {cfg.num_experts} experts of d_ff "
+              f"{cfg.d_ff}, top-{cfg.num_experts_per_tok}; {n_params:,} "
+              f"params), {MOE_TOKENS} tokens f32, capacity factor {factor} "
+              f"(capacity {cap}): gate_idx / slot / keep identical under "
+              f"both forms and equal to the CPU's: {same_route}; "
+              f"{dropped} of {keep.numel()} choices dropped; one-hot vs "
+              f"scatter: output max |diff| {out_err:.3g} (scale "
+              f"{float(o2.abs().max()):.4g}), aux {float(a1):.9g} vs "
+              f"{float(a2):.9g}, gradients' max |diff| "
+              f"{ {k: round(v[1], 9) for k, v in grad.items()} }; forward "
+              f"+ backward {ms1:.3f} ms one-hot, {ms2:.3f} ms scatter "
+              f"(CUDA events, 5 calls); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        if not same_route:
+            _fail(f"phase 9b {arch}: routing differs (factor {factor})")
+        if not (out_ok and aux_ok and all(ok for ok, _ in grad.values())):
+            _fail(f"phase 9b {arch}: one-hot and scatter disagree (factor "
+                  f"{factor})")
+        if not finite:
+            _fail(f"phase 9b {arch}: non-finite output (factor {factor})")
+        if factor == 0.1 and not dropped:
+            _fail(f"phase 9b {arch}: capacity factor 0.1 dropped nothing")
+        del o1, o2, a1, a2, g1, g2, keep
+    del params, x, ct
+    torch.cuda.empty_cache()
+
+
+def phase_moe(results: dict, smi: str) -> None:
+    """9a granite-moe-3b-a800m FULL at 20 layers, 9b one MoE layer of
+    granite and of grok at full width, 9c grok-1-314b smoke; see the
+    module docstring."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import tree
+    from repro_torch.core.arena import INT32_MAX
+    from repro_torch.launch.train import profile_steps
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_layers=GRANITE_LAYERS)
+    label = f"9a granite-moe-3b-a800m ({GRANITE_LAYERS} of 32 layers)"
+    trainer, state, data, launches = _train_model(
+        label, cfg, MODEL_BATCH, MODEL_SEQ, MODEL_STEPS, smi,
+        tc=TrainConfig(**GRANITE_TRAIN))
+    groups = [g for plan in trainer._sync._plans.values()
+              for g in plan.groups]
+    print(f"[moe] 9a arenas: "
+          f"{[(g.compressor, g.dtype, g.total) for g in groups]}; the "
+          f"int32 limit {INT32_MAX:,}")
+    if not groups or max(g.total for g in groups) >= INT32_MAX:
+        _fail("phase 9a: an arena reaches the int32 limit (or none formed)")
+    for name in SEG_KERNELS:
+        if not launches.get(name):
+            _fail(f"phase 9a: {name} was not launched")
+    for name in results:
+        results[name]["launches"]["9a_granite"] = launches.get(name, 0)
+    print(f"[profile] {label} ({smi}):")
+    profile_steps(trainer, state, data, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(data).items()}
+    grads = _model_grads(trainer.model, state.params, batch)
+    # why 9a clips (GRANITE_TRAIN): each leaf's largest |gradient| beside
+    # its largest |entry|
+    scales = {path: (f"{float(g.abs().max()):.4g}",
+                     f"{float(p.abs().max()):.4g}")
+              for (path, p), g in zip(tree.flatten_with_paths(state.params),
+                                      tree.flatten(grads)[0])}
+    print(f"[moe] 9a max |gradient| / max |param| by leaf: {scales}; {smi}")
+    leaves, sent, arena, calls = _kernel_update(trainer, state, grads, "9a")
+    want = {k: v.cpu() for k, v in leaves.items()}
+    del leaves
+    _check_arena_kernels(arena, "granite-moe-3b-a800m", smi)
+    _check_leaf_calls(calls, "9a", smi)
+    del arena, calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _twins_update(trainer, state, grads, want, sent, "9a", smi)
+    print(f"[moe] 9a peak device memory through the twins' update "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    del trainer, state, data, batch, grads, want, sent
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, factors in MOE_LAYERS:
+        torch.cuda.reset_peak_memory_stats()
+        phase_moe_layer(arch, factors, smi)
+
+    out = _train_model("9c grok-1-314b smoke", get_config(
+        "grok-1-314b", smoke=True), 2, 128, 2, smi)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] phase 9 {time.perf_counter() - t_phase:.1f} s; {smi}")
+    print(f"[moe] OK: granite-moe-3b-a800m at full width "
+          f"({GRANITE_LAYERS} layers) trained with kernels 1-3, kernels 1-3, "
+          f"7e and 8 == twins at its shapes and on a whole update; one-hot "
+          f"== scatter at granite's and grok-1-314b's width; grok-1-314b "
+          f"smoke trained")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2650,6 +2982,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after each path's steps, profile N more steps")
     args = ap.parse_args(argv)
+    # the caching allocator grows segments instead of leaving gaps: at
+    # 9a's 62 GiB peak, fixed segments strand up to 16.5 GiB reserved but
+    # unallocated, and a 7.8 GiB arena copy then fails on an 80 GB card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2688,6 +3025,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_dist(results, default_steps, smi)
     phase_ckpt(results, smi)
     phase_models(results, smi)
+    phase_moe(results, smi)
 
     print(json.dumps({"kernels": [results[k] for k in (
         "seg_abs_sum_max", "seg_count_gt", "seg_compact_gt",

@@ -8,11 +8,13 @@ parity run initialises in JAX and moves the values across:
 
 Parameters map one to one, same layouts, no transposes. The paper's
 LSTM: ``embed.table``, ``lm_head``, ``lm_bias``, ``lstm_i.{wx,wh,b}``.
-The transformer chassis (dense and vlm): ``embed.table`` (and
+The transformer chassis (dense, moe and vlm): ``embed.table`` (and
 ``embed.lm_head`` when untied), ``layers.{attn.{wq,wk,wv,wo,q_norm,k_norm},
 ffn.{w_gate,w_up,w_down},norm_attn,norm_ffn}``, each stacked on a
 leading layer axis (``q_norm`` / ``k_norm`` only with qk-norm), and
-``final_norm``.
+``final_norm``. In the moe family ``layers.ffn`` is the MoE FFN:
+``router`` ``[L, D, E]``, ``w_gate`` / ``w_up`` ``[L, E, D, F]`` and
+``w_down`` ``[L, E, F, D]``.
 
 A ``LeafState`` tree (any named tuple with the reference's five fields
 at the leaves) becomes the port's ``LeafState`` tree, and a buffered

@@ -21,6 +21,9 @@ from . import sync as sync_lib
 from .selection import STATS_BLOCK, Selected
 
 ARENA_BLOCK = STATS_BLOCK      # element alignment of arena slots
+# the wire format's arena-global indices and their padding sentinel (the
+# arena's size, ``communicated_indices``) are int32
+INT32_MAX = 2 ** 31 - 1
 
 
 def padded_size(n: int, block: int = ARENA_BLOCK) -> int:
@@ -166,7 +169,9 @@ def build_group(aid: int, compressor: str, dtype: str,
                 leaves: Sequence[tuple[int, str, int, int, int, int]]
                 ) -> ArenaGroup:
     """Lay out one arena. ``leaves`` holds per-slot
-    ``(leaf_index, path, size, k, capacity, msg_len)`` in tree order."""
+    ``(leaf_index, path, size, k, capacity, msg_len)`` in tree order.
+    Raises ``ValueError`` when the arena's elements reach ``INT32_MAX``:
+    its int32 message indices could not address them."""
     slots = []
     off = row = moff = 0
     for leaf, path, size, k, capacity, msg_len in leaves:
@@ -177,6 +182,12 @@ def build_group(aid: int, compressor: str, dtype: str,
         off += pad
         row += pad // ARENA_BLOCK
         moff += msg_len
+    if off >= INT32_MAX:
+        raise ValueError(
+            f"arena {aid} ({compressor}, {dtype}) would hold {off:,} "
+            f"elements; its int32 message indices and padding sentinel "
+            f"need fewer than 2^31 - 1 = {INT32_MAX:,}: send fewer leaves "
+            f"to one arena (fuse_leaves=False, or a smaller model)")
     return ArenaGroup(aid=aid, compressor=compressor, dtype=dtype,
                       slots=tuple(slots))
 

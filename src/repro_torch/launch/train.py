@@ -3,7 +3,8 @@
 Trains a registry model with RGC, CUDA by default: ``--arch`` is the
 paper's LSTM LM (``paper-lstm``) or one of the transformer configs
 ported so far (``internlm2-1.8b``, ``qwen3-32b``, ``h2o-danube-3-4b``,
-``gemma3-4b``, ``paligemma-3b``; ``--smoke`` for the reduced width). It
+``gemma3-4b``, ``paligemma-3b``, and the MoE ``granite-moe-3b-a800m``
+and ``grok-1-314b``; ``--smoke`` for the reduced width). It
 runs on one device, or data parallel over ``--mesh D`` (or ``Dx1``)
 ranks started by ``torchrun``, whose environment gives the rank, world
 size and address. ``--batch`` is the GLOBAL batch, split over the ranks
@@ -36,6 +37,9 @@ as in JAX:
       --steps 4 --batch 2 --seq 4096 --data zipf --density 0.001
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
       --smoke --steps 2 --batch 2 --seq 32 --data zipf --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch granite-moe-3b-a800m --smoke --steps 2 --batch 2 --seq 32 \
+      --data zipf --device cpu
 
 On a mesh the backend is ``nccl`` on the card (one rank per card:
 ``cuda:LOCAL_RANK``) and ``gloo`` on the CPU. The two-axis

@@ -9,12 +9,13 @@ ported family the same entry points:
     train_inputs(batch, seq)          {key: (shape, dtype)} of a batch
     make_train_batch(batch, seq, seed, device)  a concrete synthetic batch
 
-Families: dense and vlm ride the transformer chassis (vlm adds stub patch
-embeddings as a bidirectional prefix); lstm is the paper's model. The
-serving entries (``cache_struct``, ``init_cache``, ``prefill``,
-``decode_step``) are ``None`` until serving is ported, and the families
-moe, rwkv6, hybrid and encdec raise ``NotImplementedError`` until their
-modules are (ROADMAP.md).
+Families: dense, moe and vlm ride the transformer chassis (moe swaps
+the MLP for ``models/moe.py`` and adds its load-balance loss; vlm adds
+stub patch embeddings as a bidirectional prefix); lstm is the paper's
+model. The serving entries (``cache_struct``, ``init_cache``,
+``prefill``, ``decode_step``) are ``None`` until serving is ported, and
+the families rwkv6, hybrid and encdec raise ``NotImplementedError``
+until their modules are (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ def _lstm_init(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
 
 def get_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "moe", "vlm"):
         return Model(
             cfg=cfg,
             param_defs=lambda: transformer.param_defs(cfg),
@@ -92,7 +93,7 @@ def get_model(cfg: ModelConfig) -> Model:
             param_defs=lambda: lstm.param_defs(cfg),
             loss=lambda p, b: lstm.loss(cfg, p, b["tokens"]),
             init=lambda seed, dev: _lstm_init(cfg, seed, dev))
-    if fam in ("moe", "rwkv6", "hybrid", "encdec"):
+    if fam in ("rwkv6", "hybrid", "encdec"):
         raise NotImplementedError(
             f"model family {fam!r} is not ported yet (see ROADMAP.md)")
     raise ValueError(f"unknown family: {fam}")

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM — the chassis of the dense and vlm
+"""Decoder-only transformer LM — the chassis of the dense, moe and vlm
 families.
 
 Port of ``src/repro/models/transformer.py``, its training path. Every
@@ -20,9 +20,13 @@ so the flag has no effect here. ``cfg.remat`` wraps each layer in
 Python dispatch on ``cfg.pattern_codes()``, as the reference's serving
 path does it.
 
-Only ``family`` dense and vlm: a MoE FFN raises until ``models/moe.py``
-is ported. Left out until serving is ported (ROADMAP.md):
-``init_cache``, ``cache_struct``, ``prefill`` and ``decode_step``.
+The FFN is pluggable, as in the reference: the dense gated MLP
+(``common.mlp``) or, for ``family == "moe"``, ``moe.moe_ffn``, whose
+load-balance aux loss each layer returns beside its output (inside the
+checkpointed body, so its gradient survives remat); ``loss`` adds
+``0.01`` times the layers' sum. Left out until serving is ported
+(ROADMAP.md): ``init_cache``, ``cache_struct``, ``prefill`` and
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -33,16 +37,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tree
+from . import moe as moe_lib
 from .attention import attention_block, attn_defs
 from .common import (ParamDef, chunked_ce_loss, embed_defs, embed_lookup,
                      mlp, mlp_defs, rms_norm)
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"model family {cfg.family!r} on the transformer chassis is not "
-            f"ported yet (models/moe.py; see ROADMAP.md)")
+            f"ported yet (see ROADMAP.md)")
 
 
 def _stack(defs: Any, n: int) -> Any:
@@ -52,11 +57,24 @@ def _stack(defs: Any, n: int) -> Any:
                            d.scale), defs)
 
 
+def _ffn_defs(cfg: ModelConfig) -> dict:
+    return moe_lib.moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg)
+
+
+def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
+               ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, aux): the MoE FFN's aux loss, or None for the dense MLP (the
+    reference's ``0.0``, left out so the dense path runs no extra op)."""
+    if cfg.family == "moe":
+        return moe_lib.moe_ffn(cfg, p, x)
+    return mlp(cfg, p, x), None
+
+
 def layer_defs(cfg: ModelConfig) -> dict:
     _check_family(cfg)
     return {
         "attn": attn_defs(cfg),
-        "ffn": mlp_defs(cfg),
+        "ffn": _ffn_defs(cfg),
         "norm_attn": ParamDef((cfg.d_model,), (None,), init="zeros"),
         "norm_ffn": ParamDef((cfg.d_model,), (None,), init="zeros"),
     }
@@ -72,8 +90,9 @@ def param_defs(cfg: ModelConfig) -> dict:
 
 def _layer(cfg: ModelConfig, p: dict, x: torch.Tensor, code: int, *,
            positions: torch.Tensor, prefix_len: Optional[int]
-           ) -> torch.Tensor:
-    """One transformer layer; ``code``: 0 = global/full, 1 = local/SWA."""
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One transformer layer -> (x, aux); ``code``: 0 = global/full, 1 =
+    local/SWA."""
     g_theta = cfg.rope_theta_global or cfg.rope_theta
     if cfg.window_size is None:
         window, theta = None, g_theta
@@ -87,53 +106,63 @@ def _layer(cfg: ModelConfig, p: dict, x: torch.Tensor, code: int, *,
                             prefix_len=prefix_len,
                             softcap=cfg.attn_logit_softcap)
     h = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    return x + mlp(cfg, p["ffn"], h)
+    f, aux = _ffn_apply(cfg, p["ffn"], h)
+    return x + f, aux
 
 
 def _run_layers(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
                 positions: torch.Tensor, prefix_len: Optional[int] = None
-                ) -> torch.Tensor:
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the stacked layers in order (the reference's ``caches is
-    None`` path), each under ``checkpoint`` when ``cfg.remat``."""
+    None`` path), each under ``checkpoint`` when ``cfg.remat``. Returns
+    (x, the layers' aux losses summed in layer order, or None when the
+    FFN has none)."""
     leaves, treedef = tree.flatten(params["layers"])
     per_leaf = [torch.unbind(a, 0) for a in leaves]
     codes = cfg.pattern_codes()
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = None
     for i in range(cfg.num_layers):
         lp = tree.unflatten(treedef, [v[i] for v in per_leaf])
 
         def body(x_, lp=lp, code=codes[i]):
             return _layer(cfg, lp, x_, code, positions=positions,
                           prefix_len=prefix_len)
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
-    return x
+        x, a_i = (checkpoint(body, x, use_reentrant=False) if remat
+                  else body(x))
+        if a_i is not None:
+            aux = a_i if aux is None else aux + a_i
+    return x, aux
 
 
 def hidden_states(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   prefix_embeds: Optional[torch.Tensor] = None
-                  ) -> tuple[torch.Tensor, Optional[int]]:
-    """Train-mode forward -> (hidden [B,S',D], prefix_len or None)."""
+                  ) -> tuple[torch.Tensor, Optional[torch.Tensor],
+                             Optional[int]]:
+    """Train-mode forward -> (hidden [B,S',D], aux or None, prefix_len
+    or None)."""
     x = embed_lookup(cfg, params["embed"], tokens)
     prefix_len = None
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         prefix_len = int(prefix_embeds.shape[1])
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_layers(cfg, params, x, positions=positions,
-                    prefix_len=prefix_len)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), prefix_len
+    x, aux = _run_layers(cfg, params, x, positions=positions,
+                         prefix_len=prefix_len)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, prefix_len
 
 
 def loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Mean next-token CE of ``batch["tokens"]`` [B, S] (after the
     ``prefix_embeds`` prefix, for vlm), weighted by ``loss_mask`` if
-    given. Dense and vlm FFNs add no auxiliary loss (the reference adds
-    ``0.01 * 0.0``)."""
+    given, plus ``0.01`` times the MoE layers' aux loss. Dense and vlm
+    FFNs add none (the reference adds ``0.01 * 0.0``)."""
     _check_family(cfg)
     tokens = batch["tokens"]
-    h, prefix_len = hidden_states(cfg, params, tokens,
-                                  batch.get("prefix_embeds"))
+    h, aux, prefix_len = hidden_states(cfg, params, tokens,
+                                       batch.get("prefix_embeds"))
     if prefix_len is not None:
         h = h[:, prefix_len:]
-    return chunked_ce_loss(cfg, params["embed"], h[:, :-1], tokens[:, 1:],
-                           batch.get("loss_mask"))
+    ce = chunked_ce_loss(cfg, params["embed"], h[:, :-1], tokens[:, 1:],
+                         batch.get("loss_mask"))
+    return ce if aux is None else ce + 0.01 * aux

@@ -3,7 +3,7 @@
 Port of ``src/repro/train/trainer.py``: its ``mesh=None`` path and its
 pure data-parallel path (``flat_step``). The model comes from
 ``models.registry.get_model``: the paper's LSTM LM or a transformer of
-the dense or vlm family. Each step computes ``model.loss(params, batch)``
+the dense, moe or vlm family. Each step computes ``model.loss(params, batch)``
 on this rank's rows of every batch key and its LOCAL gradients
 (``torch.autograd.grad``) and hands them to ``GradientSync.update``
 (residual + momentum correction -> selection -> pack -> allgather ->

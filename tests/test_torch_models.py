@@ -59,8 +59,8 @@ def _free_jax_executables():
 
 PORTED = ("internlm2-1.8b", "qwen3-32b", "h2o-danube-3-4b", "gemma3-4b",
           "paligemma-3b")
-NOT_PORTED = ("recurrentgemma-9b", "rwkv6-3b", "grok-1-314b",
-              "granite-moe-3b-a800m", "whisper-large-v3")
+MOE = ("grok-1-314b", "granite-moe-3b-a800m")   # tests/test_torch_moe.py
+NOT_PORTED = ("recurrentgemma-9b", "rwkv6-3b", "whisper-large-v3")
 BATCH, SEQ = 2, 32
 LR = 0.125
 GRAD_TOL = {"qwen3-32b": 1e-5}        # else 1e-3 (see the docstring)
@@ -106,7 +106,7 @@ def test_configs_shapes_and_registry_match_reference():
     from repro_torch.core.tree import flatten_with_paths
     from repro_torch.models import registry, transformer
 
-    assert set(tconfigs.ARCH_IDS) == set(PORTED)
+    assert set(tconfigs.ARCH_IDS) == set(PORTED + MOE)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(jconfigs.ModelConfig)]
     for arch in PORTED + ("paper-lstm",):
@@ -123,10 +123,10 @@ def test_configs_shapes_and_registry_match_reference():
             tconfigs.get_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_config("internlm2")
-    moe = dataclasses.replace(tconfigs.get_config("internlm2-1.8b"),
-                              family="moe")
+    rwkv6 = dataclasses.replace(tconfigs.get_config("internlm2-1.8b"),
+                                family="rwkv6")
     with pytest.raises(NotImplementedError):
-        registry.get_model(moe)
+        registry.get_model(rwkv6)
 
     # full-width internlm2-1.8b: the default dispatch sends the nine
     # matrices (bf16) to one bsearch arena of ~1.89e9 elements; its
